@@ -1,0 +1,270 @@
+"""Groupby / aggregate: sum, min, max, avg, count.
+
+Counterpart of `libgdf_tpu/ops/groupby.py` (≅ gdf_group_by_{sum,min,max,
+avg,count}, libgdf/src/sqls_ops.cu:1426-1487, and the sort path of
+sqls_rtti_comp.hpp:400-660), with the same algorithm:
+
+    sort:       key flags and encodings packed into 64-bit words; one
+                stable sort carries every aggregated column along;
+    boundaries: adjacent difference of the sorted key fields;
+    scans:      per aggregate a segmented scan (H3), whose value at each
+                group's last row is the aggregate;
+    extract:    one compaction (H1) keeps the group-last rows; keys are
+                decoded from the sorted words.
+
+Output rows come sorted by key. Null semantics are the JAX package's
+(pandas-like): `dropna=True` drops null-key rows, `dropna=False` makes each
+null-key row a group of its own (NULL != NULL); aggregates skip null
+values; COUNT counts the non-null values of its column.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..core.bitmask import mask_or
+from ..core.column import Column
+from ..core.dtypes import DtypeInfo, GDFDtype, dtype_from_numpy
+from ..core.errors import GDFStatus, require
+from ..core.table import Table
+from ..utils.metrics import op_metrics, table_bytes
+from .compaction import compact_arrays
+from .engine import multi_sort, seg_scan_max, seg_scan_min, seg_scan_sum
+from .sort import (bit_field_offsets, pack_bit_fields, radix_bits,
+                   radix_decode, radix_encode, radix_from_bits, radix_width,
+                   unpack_bit_field)
+
+AGG_OPS = ("sum", "min", "max", "avg", "count", "count_distinct")
+_F64 = DtypeInfo(GDFDtype.FLOAT64)
+_I64 = DtypeInfo(GDFDtype.INT64)
+
+
+def _agg_identity(op: str, dtype: torch.dtype):
+    if op == "sum":
+        return 0
+    if dtype.is_floating_point:
+        return float("inf") if op == "min" else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if op == "min" else info.min
+
+
+def groupby(table: Table, key_names: Sequence[str], aggs: Sequence[tuple],
+            dropna: bool = True) -> Table:
+    """Group by key columns and aggregate.
+
+    aggs: (column_name, op[, output_name]) with op in AGG_OPS. Returns a
+    Table of the key columns and one column per aggregate, padded to the
+    input capacity, with num_rows = number of groups, sorted by key."""
+    require(len(key_names) > 0, GDFStatus.GDF_DATASET_EMPTY, "no keys")
+    for a in aggs:
+        require(a[1] in AGG_OPS, GDFStatus.GDF_INVALID_AGGREGATOR, a[1])
+    with op_metrics("LIBGDF_GROUPBY", rows_in=table.capacity,
+                    bytes_est=2 * table_bytes(table)) as m:
+        out = _groupby_impl(table, key_names, aggs, dropna)
+        m["rows_out"] = out.num_rows
+    return out
+
+
+def _groupby_impl(table: Table, key_names, aggs, dropna: bool) -> Table:
+    n = table.capacity
+    dev = table.device
+    key_cols = [table.column(k) for k in key_names]
+
+    # Dropped rows sort last; with dropna=False each null-key row is its
+    # own group (gdf_table.cuh:588-591).
+    null_key = None
+    for c in key_cols:
+        if c.valid is not None:
+            null_key = mask_or(null_key, ~c.valid)
+    drop = null_key if dropna else None
+    if table.num_rows is not None:
+        drop = mask_or(drop, ~table.live_mask())
+
+    widths, fields, key_field_idx = [], [], []
+    key_nullable = [(not dropna and c.valid is not None) for c in key_cols]
+    if drop is not None:
+        fields.append((drop.to(torch.int64), 1))
+    for j, c in enumerate(key_cols):
+        data = c.data
+        if data.is_floating_point():
+            data = torch.where(data == 0, torch.zeros_like(data), data)
+        w = radix_width(data.dtype)
+        widths.append(w)
+        if key_nullable[j]:
+            # the null flag sorts inside the key word, just above the key
+            fields.append(((~c.valid).to(torch.int64), 1))
+        key_field_idx.append(len(fields))
+        fields.append((radix_bits(radix_encode(data), w), w))
+    words = pack_bit_fields(fields)
+    nk = len(words)
+
+    operands = list(words)
+    agg_slots = {}
+    for spec in aggs:
+        col_name = spec[0]
+        if col_name in agg_slots:
+            continue
+        acol = table.column(col_name)
+        operands.append(acol.data)
+        dslot = len(operands) - 1
+        vslot = None
+        if acol.valid is not None:
+            operands.append(acol.valid)
+            vslot = len(operands) - 1
+        agg_slots[col_name] = (dslot, vslot)
+    res = multi_sort(operands, num_keys=nk)
+
+    s_words = res[:nk]
+    offs, _ = bit_field_offsets([f[1] for f in fields])
+    if drop is not None:
+        s_dropped = unpack_bit_field(s_words, offs[0], 1) != 0
+    else:
+        s_dropped = torch.zeros(n, dtype=torch.bool, device=dev)
+    s_enc = [radix_from_bits(unpack_bit_field(s_words, offs[key_field_idx[j]],
+                                              widths[j]), widths[j])
+             for j in range(len(key_cols))]
+    s_key_null = {j: unpack_bit_field(s_words, offs[key_field_idx[j] - 1],
+                                      1) != 0
+                  for j in range(len(key_cols)) if key_nullable[j]}
+
+    # Group boundaries (≅ reduce_by_key's equality predicate).
+    new_group = torch.zeros(n, dtype=torch.bool, device=dev)
+    if n:
+        new_group[0] = True
+    for k in s_enc:
+        new_group[1:] |= k[1:] != k[:-1]
+    if s_key_null:
+        s_null = torch.zeros(n, dtype=torch.bool, device=dev)
+        for flag in s_key_null.values():
+            s_null = s_null | flag
+        # a null-key row always starts and ends its own group
+        new_group = new_group | s_null
+        new_group[1:] |= s_null[:-1]
+
+    scan_starts = new_group | s_dropped
+    is_last = torch.cat([scan_starts[1:],
+                         torch.ones(1, dtype=torch.bool, device=dev)])[:n]
+    keep = is_last & ~s_dropped
+    num_groups = keep.sum(dtype=torch.int32)
+    group_live = torch.arange(n, dtype=torch.int32, device=dev) < num_groups
+
+    out_arrays, builders = [], []
+
+    def add_out(arrs, build):
+        out_arrays.append(arrs)
+        builders.append(build)
+
+    for j, (name, c, enc) in enumerate(zip(key_names, key_cols, s_enc)):
+        has_null_flag = j in s_key_null
+
+        def build_key(xs, c=c, kv=has_null_flag, name=name):
+            if kv:
+                valid = xs[1] & group_live
+            else:
+                valid = None if c.valid is None else group_live
+            return Column(data=xs[0], valid=valid, info=c.info, name=name)
+
+        arrs = [radix_decode(enc, c.data.dtype)]
+        if has_null_flag:
+            arrs.append(~s_key_null[j])
+        add_out(arrs, build_key)
+
+    # AVG from sibling SUM and COUNT of the same column (≅ multi_pass_avg
+    # reusing its results, groupby.cuh:308-419): no scans of its own; the
+    # divide runs after the extraction.
+    sums = {s[0]: (s[2] if len(s) > 2 else f"sum_{s[0]}")
+            for s in aggs if s[1] == "sum"}
+    counts = {s[0]: (s[2] if len(s) > 2 else f"count_{s[0]}")
+              for s in aggs if s[1] == "count"}
+    deferred_avg = {}
+
+    for spec in aggs:
+        col_name, op = spec[0], spec[1]
+        out_name = spec[2] if len(spec) > 2 else f"{op}_{col_name}"
+        if op == "avg" and col_name in sums and col_name in counts:
+            deferred_avg[len(builders)] = (out_name, sums[col_name],
+                                           counts[col_name])
+            add_out([], None)
+            continue
+        dslot, vslot = agg_slots[col_name]
+        avalid = None if vslot is None else res[vslot]
+        arrs, build = _scan_agg(res[dslot], avalid, scan_starts, op,
+                                group_live, out_name)
+        add_out(arrs, build)
+
+    flat = [a for arrs in out_arrays for a in arrs]
+    compacted, _ = compact_arrays(flat, keep)
+    cols, i = [], 0
+    for arrs, build in zip(out_arrays, builders):
+        cnt = len(arrs)
+        cols.append(None if build is None else build(compacted[i:i + cnt]))
+        i += cnt
+    by_name = {c.name: c for c in cols if c is not None}
+    for pos, (out_name, s_name, c_name) in deferred_avg.items():
+        scol, ccol = by_name[s_name], by_name[c_name]
+        data = (scol.data.to(torch.float64)
+                / ccol.data.clamp(min=1).to(torch.float64))
+        valid = group_live & (ccol.data > 0)
+        if scol.valid is not None:
+            valid = valid & scol.valid
+        cols[pos] = Column(data=data, valid=valid, info=_F64, name=out_name)
+    return Table.from_columns(cols, num_rows=num_groups)
+
+
+def _scan_agg(vals, avalid, starts, op, group_live, out_name):
+    """Per-row segmented scans whose group-last values are the aggregates
+    (≅ thrust::reduce_by_key, sqls_rtti_comp.hpp:468-509). Returns (arrays
+    to extract, builder)."""
+    if op in ("count", "count_distinct"):
+        ones = (torch.ones_like(vals, dtype=torch.int32) if avalid is None
+                else avalid.to(torch.int32))
+        cnt = seg_scan_sum(ones, starts)
+
+        def build_count(xs):
+            return Column(data=xs[0].to(torch.int64), valid=group_live,
+                          info=_I64, name=out_name)
+        return [cnt], build_count
+
+    if op == "avg":
+        # ≅ multi_pass_avg (groupby.cuh:308-419): float64 sum and count.
+        fvals = vals.to(torch.float64)
+        if avalid is not None:
+            fvals = torch.where(avalid, fvals, 0.0)
+            ones = avalid.to(torch.int32)
+        else:
+            ones = torch.ones_like(vals, dtype=torch.int32)
+        tot = seg_scan_sum(fvals, starts)
+        cnt = seg_scan_sum(ones, starts)
+        avg = tot / cnt.clamp(min=1)
+        if avalid is None:
+            def build_avg0(xs):
+                return Column(data=xs[0], valid=group_live, info=_F64,
+                              name=out_name)
+            return [avg], build_avg0
+
+        def build_avg(xs):
+            return Column(data=xs[0], valid=group_live & xs[1], info=_F64,
+                          name=out_name)
+        return [avg, cnt > 0], build_avg
+
+    if avalid is not None:
+        vals = torch.where(avalid, vals, _agg_identity(op, vals.dtype))
+    if op == "sum":
+        out = seg_scan_sum(vals, starts)
+    elif op == "min":
+        out = seg_scan_min(vals, starts)
+    else:
+        out = seg_scan_max(vals, starts)
+    info = DtypeInfo(dtype_from_numpy(out.dtype))
+    if avalid is None:
+        def build0(xs):
+            return Column(data=xs[0], valid=group_live, info=info,
+                          name=out_name)
+        return [out], build0
+    okay = seg_scan_sum(avalid.to(torch.int32), starts) > 0
+
+    def build(xs):
+        return Column(data=xs[0], valid=group_live & xs[1], info=info,
+                      name=out_name)
+    return [out, okay], build

@@ -1,0 +1,143 @@
+"""Build and load the Hopper kernels: nvcc -> shared library -> ctypes.
+
+The CUDA sources in `libgdf_tpu_torch/csrc/` have a plain C interface (no
+PyTorch headers), so `nvcc` builds them in seconds. The library is built
+at the first kernel launch, keyed by a hash of the sources and flags, into
+`build/kernels/` at the root of the checkout, and loaded once per process.
+Nothing here runs at import time, so the package imports on a machine
+without CUDA.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+from ...core.errors import GDFError, GDFStatus
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_PI = ctypes.POINTER(ctypes.c_int)
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+
+# C entry point -> (restype, argtypes). Every pointer and the stream are
+# c_void_p: without argtypes ctypes would pass them as 32-bit ints.
+_SIGNATURES = {
+    "gdf_cuda_error_string": (ctypes.c_char_p, [_I]),
+    "gdf_scan_tile_elems": (_I, []),
+    "gdf_scan": (_I, [_I, _I, _P, _P, _P, _I64, _P, _P, _P]),
+    "gdf_compact_tile_elems": (_I, []),
+    "gdf_compact_max_arrays": (_I, []),
+    "gdf_compact_offsets": (_I, [_P, _I64, _P, _P, _P]),
+    "gdf_compact_scatter": (_I, [_P, _I64, _P, _I, _PP, _PP, _PI, _P]),
+    "gdf_expand_max_words": (_I, []),
+    "gdf_expand_fill": (_I, [_P, _I64, _I64, _I, _PP, _PP, _PI, _P]),
+}
+
+_LOCK = threading.Lock()
+_LIB = None
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libgdf_tpu_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for root in ([home] if home else []) + ["/usr/local/cuda"]:
+        cand = Path(root) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    raise GDFError(GDFStatus.GDF_CUDA_ERROR, "nvcc not found (set CUDA_HOME)")
+
+
+def build() -> Path:
+    """Compile the kernels for sm_90a unless the library for these sources
+    exists already. Returns the library's path."""
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cus = [str(p) for p in sources() if p.suffix == ".cu"]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise GDFError(GDFStatus.GDF_CUDA_ERROR,
+                           "nvcc failed:\n" + res.stdout + res.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            so = ctypes.CDLL(str(build()))
+            for name, (res, args) in _SIGNATURES.items():
+                fn = getattr(so, name)
+                fn.restype = res
+                fn.argtypes = args
+            _LIB = so
+        return _LIB
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C launcher returned a non-zero cudaError_t."""
+    if err != 0:
+        msg = lib().gdf_cuda_error_string(err).decode()
+        raise GDFError(GDFStatus.GDF_CUDA_ERROR, f"{what}: {msg} ({err})")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def pointer_array(tensors) -> ctypes.Array:
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def int_array(values) -> ctypes.Array:
+    return (ctypes.c_int * len(values))(*values)
+
+
+def require_cuda(what: str, *tensors) -> torch.device:
+    """Check that every tensor is a contiguous CUDA tensor on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{what}: tensors must share one CUDA device, "
+                             f"got {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: tensors must be contiguous")
+    return dev

@@ -1,0 +1,213 @@
+"""libgdf_tpu_torch operators against libgdf_tpu's, on the CPU.
+
+The same numpy inputs go through both packages (the JAX package runs its
+XLA paths on the CPU). Tolerances: integers, counts, validity, join
+indices and row order exact; float32 sums rtol=1e-4, atol=1e-4 (the
+groupby sort and the scans add in another order, as in
+tests/test_pipeline_fuzz.py); float64 sums and averages rtol=1e-12,
+atol=1e-12 (float64 scans in another association order).
+"""
+import numpy as np
+import pytest
+
+import libgdf_tpu.ops as jops
+import libgdf_tpu_torch.ops as tops
+from torch_parity import assert_tables_match, jax_op, make_tables, np_of
+
+F32_SUM = (1e-4, 1e-4)
+F64_SUM = (1e-12, 1e-12)
+N = 500  # one row count for most tests: the JAX side compiles per shape
+
+
+def _data(rng, n, kdt=np.int32, nkeys=20, null_p=0.1):
+    keys = rng.integers(0, nkeys, n).astype(kdt)
+    cols = {"k": keys,
+            "i32": rng.integers(-1000, 1000, n).astype(np.int32),
+            "i64": rng.integers(-2**40, 2**40, n).astype(np.int64),
+            "f32": rng.standard_normal(n).astype(np.float32),
+            "f64": rng.standard_normal(n)}
+    nulls = {name: rng.random(n) < null_p for name in cols}
+    return cols, nulls
+
+
+@pytest.mark.parametrize("op", ["lt", "le", "gt", "ge", "eq", "ne", 2])
+@pytest.mark.parametrize("col,value", [("i32", 10), ("i32", 10.5),
+                                       ("i64", -7), ("f32", 0.25),
+                                       ("f64", -0.5)])
+def test_compare_scalar(rng, op, col, value):
+    cols, nulls = _data(rng, N)
+    cols["i32"][:5] = 10
+    jt, tt = make_tables(cols, nulls)
+    j = jops.compare_scalar(jt[col], value, op)
+    t = tops.compare_scalar(tt[col], value, op)
+    np.testing.assert_array_equal(np_of(t.data), np_of(j.data))
+    np.testing.assert_array_equal(np_of(t.valid), np_of(j.valid))
+    assert t.info.gdf_dtype.value == j.info.gdf_dtype.value
+
+
+@pytest.mark.parametrize("op", ["lt", "ge", "eq", 1])
+def test_compare_columns(rng, op):
+    cols, nulls = _data(rng, N)
+    cols["i64"][:50] = cols["i32"][:50]
+    jt, tt = make_tables(cols, nulls)
+    for a, b in (("i32", "k"), ("f32", "f64"), ("i64", "i32")):
+        j = jops.compare(jt[a], jt[b], op)
+        t = tops.compare(tt[a], tt[b], op)
+        np.testing.assert_array_equal(np_of(t.data), np_of(j.data))
+        np.testing.assert_array_equal(np_of(t.valid), np_of(j.valid))
+
+
+@pytest.mark.parametrize("num_rows", [None, 450])
+def test_filter_table(rng, num_rows):
+    cols, nulls = _data(rng, N)
+    jt, tt = make_tables(cols, nulls, num_rows=num_rows)
+    jf = jax_op("filter_table", jt,
+                jops.compare_scalar(jt["f32"], 0.1, "lt"))
+    tf = tops.filter_table(tt, tops.compare_scalar(tt["f32"], 0.1, "lt"))
+    assert int(tf.num_rows) == int(jf.num_rows)
+    assert_tables_match(jf, tf)
+
+
+@pytest.mark.parametrize("keys,ascending,num_rows", [
+    (["i64", "f32"], [False, True], None),
+    (["k", "f64", "i32"], [True, False, True], 450),
+    (["f32"], False, 450),
+])
+@pytest.mark.parametrize("nulls_last", [True, False])
+def test_order_by(rng, keys, ascending, nulls_last, num_rows):
+    cols, nulls = _data(rng, N, nkeys=5)
+    cols["f32"][:8] = [0.0, -0.0, np.nan, np.inf, -np.inf, 1.0, 1.0, -0.0]
+    cols["f64"][:4] = [0.0, -0.0, np.nan, 1e-310]
+    jt, tt = make_tables(cols, nulls, num_rows=num_rows)
+    asc = ascending if isinstance(ascending, bool) else tuple(ascending)
+    jp = jax_op("order_by", jt, key_names=tuple(keys), ascending=asc,
+                nulls_last=nulls_last)
+    tp = tops.order_by(tt, keys, ascending=ascending, nulls_last=nulls_last)
+    np.testing.assert_array_equal(np_of(tp), np_of(jp))
+
+
+def test_sort_table(rng):
+    cols, nulls = _data(rng, N, nkeys=7)
+    jt, tt = make_tables(cols, nulls, num_rows=450)
+    assert_tables_match(jax_op("sort_table", jt, key_names=("k", "f32"),
+                               ascending=(True, False)),
+                        tops.sort_table(tt, ["k", "f32"], [True, False]))
+
+
+def _join_inputs(rng, kdt, dup, stretch, n=400, m=120, nkeys=60):
+    lk = rng.integers(0, nkeys, n).astype(kdt)
+    rk = (np.repeat(rng.permutation(nkeys)[:m // 3], 3) if dup
+          else rng.permutation(nkeys * 2)[:m]).astype(kdt)
+    if stretch:
+        lk = lk + (lk % 3).astype(kdt) * kdt(1 << 40)
+        rk = rk + (rk % 3).astype(kdt) * kdt(1 << 40)
+    left = ({"k": lk, "a": np.arange(n, dtype=np.int32)},
+            {"k": rng.random(n) < 0.1})
+    right = ({"k": rk, "b": rng.standard_normal(len(rk)).astype(np.float32)},
+             {"k": rng.random(len(rk)) < 0.1})
+    return left, right
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "full"])
+@pytest.mark.parametrize("dup", [False, True])
+@pytest.mark.parametrize("kdt,stretch", [(np.int32, False),
+                                         (np.int64, True)])
+def test_join_indices(rng, how, dup, kdt, stretch):
+    (lc, ln), (rc, rn) = _join_inputs(rng, kdt, dup, stretch)
+    jl, tl = make_tables(lc, ln, num_rows=380)
+    jr, tr = make_tables(rc, rn)
+    ji, jj, jc = jops.join_indices(jl, jr, ["k"], ["k"], how=how)
+    ti, tj, tc = tops.join_indices(tl, tr, ["k"], ["k"], how=how)
+    assert int(tc) == int(jc)
+    np.testing.assert_array_equal(np_of(ti), np_of(ji))
+    np.testing.assert_array_equal(np_of(tj), np_of(jj))
+
+
+@pytest.mark.parametrize("how", ["inner", "full"])
+def test_join_multi_key_and_float_keys(rng, how):
+    n, m = 400, 120
+    lc = {"a": rng.integers(0, 6, n).astype(np.int32),
+          "b": rng.choice([0.0, -0.0, 1.5, np.nan, 2.5], n)}
+    rc = {"a": rng.integers(0, 6, m).astype(np.int32),
+          "b": rng.choice([0.0, 1.5, np.nan, 2.5], m)}
+    jl, tl = make_tables(lc, {"a": rng.random(n) < 0.1})
+    jr, tr = make_tables(rc)
+    for keys in (["a", "b"], ["b"]):
+        ji, jj, jc = jops.join_indices(jl, jr, keys, keys, how=how,
+                                       out_capacity=20_000)
+        ti, tj, tc = tops.join_indices(tl, tr, keys, keys, how=how,
+                                       out_capacity=20_000)
+        assert int(tc) == int(jc)
+        np.testing.assert_array_equal(np_of(ti), np_of(ji))
+        np.testing.assert_array_equal(np_of(tj), np_of(jj))
+
+
+def test_join_assume_unique_build_poisons_count(rng):
+    (lc, ln), (rc, rn) = _join_inputs(rng, np.int32, True, False)
+    jl, tl = make_tables(lc, ln)
+    jr, tr = make_tables(rc, rn)
+    _, _, jc = jax_op("inner_join", jl, jr, left_on=("k",), right_on=("k",),
+                      out_capacity=2000, assume_unique_build=True)
+    _, _, tc = tops.inner_join(tl, tr, ["k"], ["k"], out_capacity=2000,
+                               assume_unique_build=True)
+    assert int(tc) == int(jc) == -1
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "full"])
+def test_join_materialized(rng, how):
+    (lc, ln), (rc, rn) = _join_inputs(rng, np.int64, True, False)
+    jl, tl = make_tables(lc, ln)
+    jr, tr = make_tables(rc, rn)
+    assert_tables_match(jops.join(jl, jr, ["k"], ["k"], how=how),
+                        tops.join(tl, tr, ["k"], ["k"], how=how))
+
+
+AGGS = (("i32", "sum", "s32"), ("i64", "sum", "s64"), ("f32", "sum", "sf"),
+        ("f64", "sum", "sd"), ("i32", "min", "mn32"), ("i64", "max", "mx64"),
+        ("f32", "max", "mxf"), ("f64", "min", "mnd"), ("f32", "count", "c"),
+        ("f64", "avg", "ad"), ("i32", "avg", "a32"),
+        ("f32", "count_distinct", "cd"))
+AGG_TOL = {"sf": F32_SUM, "sd": F64_SUM, "ad": F64_SUM, "a32": F64_SUM}
+
+
+@pytest.mark.parametrize("kdt,dropna,num_rows", [
+    (np.int32, True, None), (np.int32, False, 450), (np.int64, True, 450),
+    (np.int64, False, None)])
+def test_groupby(rng, kdt, dropna, num_rows):
+    cols, nulls = _data(rng, N, kdt=kdt, nkeys=30)
+    cols["f32"][:3] = np.nan  # NaN in a 4-byte max: propagates in both
+    jt, tt = make_tables(cols, nulls, num_rows=num_rows)
+    jg = jax_op("groupby", jt, key_names=("k",), aggs=AGGS, dropna=dropna)
+    tg = tops.groupby(tt, ["k"], AGGS, dropna=dropna)
+    assert int(tg.num_rows) == int(jg.num_rows)
+    assert_tables_match(jg, tg, AGG_TOL, tie_keys=["k"],
+                        tie_break=["s32", "s64", "mn32", "mx64", "c"])
+
+
+def test_groupby_two_keys_and_avg_from_siblings(rng):
+    cols, nulls = _data(rng, N, nkeys=8)
+    cols["k2"] = rng.integers(-3, 3, N).astype(np.int64)
+    nulls["k2"] = rng.random(N) < 0.05
+    aggs = (("f32", "sum", "s"), ("f32", "count", "c"), ("f32", "avg", "a"),
+            ("f64", "max", "hi"))
+    jt, tt = make_tables(cols, nulls)
+    for dropna in (True, False):
+        jg = jax_op("groupby", jt, key_names=("k2", "k"), aggs=aggs,
+                    dropna=dropna)
+        tg = tops.groupby(tt, ["k2", "k"], aggs, dropna=dropna)
+        assert_tables_match(jg, tg, {"s": F32_SUM, "a": F32_SUM},
+                            tie_keys=["k2", "k"], tie_break=["c", "hi"])
+
+
+def test_groupby_float_keys(rng):
+    n = N
+    cols = {"k": rng.choice([0.0, -0.0, 1.5, -2.25, np.inf], n)
+            .astype(np.float32),
+            "v": rng.integers(0, 100, n).astype(np.int64)}
+    jt, tt = make_tables(cols, {"k": rng.random(n) < 0.1})
+    aggs = (("v", "sum", "s"), ("v", "min", "m"))
+    for dropna in (True, False):
+        assert_tables_match(
+            jax_op("groupby", jt, key_names=("k",), aggs=aggs, dropna=dropna),
+            tops.groupby(tt, ["k"], aggs, dropna=dropna),
+            tie_keys=["k"], tie_break=["s", "m"])
