@@ -9,21 +9,40 @@ Run from the root of a checkout, on a machine with the card and nvcc:
 2. Builds the kernels from libgdf_tpu_torch/csrc with nvcc (sm_90a).
 3. Holds each kernel (H1 compact, H2 scan, H3 seg_scan, H4 expand_fill) to
    its plain PyTorch version on CUDA tensors, at the main path's sizes and
-   at ragged and edge sizes, and times both with CUDA events.
+   at ragged and edge sizes, and times the kernel, its plain version and,
+   where one PyTorch call computes the same function, that call, with CUDA
+   events. H2 is also timed at int64 and float64 over 10M elements (its
+   instances that replace the TPU's K4a and K5a). Each kernel's bound is
+   the bytes it must move (inputs read once, outputs written once) over
+   the H100's 3.35 TB/s.
 4. Drives the main path at full size: a 10M-row fact table against a
    1M-row dimension, filter -> inner join -> groupby -> order_by, then a
-   10M x 1M inner join whose build side repeats each key 4 times. The
-   kernels' launch counts are reset just before that run and read just
-   after it; every kernel must have launched. Each operator is timed, and
-   each result is held to the same code run on CPU tensors.
-5. Prints a JSON line of the kernels, the card line, and last
-   {"ok": true, "device": {...}}.
+   10M x 1M inner join whose build side repeats each key 4 times.
+5. Drives the analytic path at full size on a 10M-row table W (50
+   partitions, a permuted order key, a float32 value with 10% NULLs, an
+   int64 and a float64 column): five window functions (ROW min and sum over
+   10,000 rows, a running avg, a RANGE sum and a partitioned RANGE max over
+   a quarter of the order range), prefix sums of the int64 and float64
+   columns, five reductions and six quantiles of the value. It then
+   profiles the ROW sum and the RANGE max windows.
+   For each path the kernels' launch counts are reset just before its run
+   and read just after it; every kernel of the path must have launched (on
+   the analytic path: H2 at int64 and float64, H3 at int32). Each operator
+   is timed on the host clock ending in a device sync, and each result is
+   held to the same code run on CPU tensors.
+6. Prints a JSON line of the operators, one of the kernels, the card line,
+   and last {"ok": true, "device": {...}}.
 
-Tolerances: integers, counts, validity and row order exact; float32 sums
-within 2e-4 and float64 sums within 1e-12 of the running sum of |x| (the
-kernel adds in another order than the plain version); groupby float32 sums
-and averages rtol=1e-4, atol=1e-4. Any failed check raises, so the exit
-code is non-zero and the last line is not printed.
+Tolerances: integers, counts, validity, quantiles, window minima and
+maxima and row order exact; kernel float32 sums within 2e-4 and float64
+sums within 1e-12 of the running sum of |x| (the kernel adds in another
+order than the plain version); groupby float32 sums and averages rtol=1e-4,
+atol=1e-4; window sums and averages within 2e-12 of the running sum of |v|
+in the window's sort order (their float64 prefix sums run over the whole
+sorted column); the float64 prefix sum within 1e-12 of the running sum of
+|x|; float32 reductions within 1e-5 of the sum of |v|, relative. Any failed
+check raises, so the exit code is non-zero and the last line is not
+printed.
 """
 import json
 import os
@@ -42,7 +61,7 @@ SOURCES = {
                 "libgdf_tpu/ops/pallas/compact.py:371; "
                 "libgdf_tpu/ops/pallas/compact2.py:177"),
     "scan": ("libgdf_tpu_torch/csrc/scan.cu",
-             "libgdf_tpu/ops/pallas/scan.py:754"),
+             "libgdf_tpu/ops/pallas/scan.py:754; scan.py:664; scan.py:428"),
     "seg_scan": ("libgdf_tpu_torch/csrc/scan.cu",
                  "libgdf_tpu/ops/pallas/scan.py:783; scan.py:692; "
                  "scan.py:456; scan.py:610"),
@@ -55,6 +74,16 @@ N_FACT, N_DIM, MULT = 10_000_000, 1_000_000, 4
 AGGS = [("v", "sum", "s"), ("v", "count", "c"), ("v", "avg", "a"),
         ("w", "max", "hi")]
 GB_TOL = {"s": (1e-4, 1e-4), "a": (1e-4, 1e-4)}
+HBM_BYTES_PER_MS = 3.35e12 / 1e3      # H100 SXM data sheet, at 700 W
+N_W, W_PARTS = 10_000_000, 50
+QMETHODS = ("linear", "lower", "higher", "midpoint", "nearest")
+# (operator, value, reduction, preceding, partition_by, frame)
+WINDOWS = (("window_min_rows", "min", 10_000, ("p",), "rows"),
+           ("window_sum_rows", "sum", 10_000, ("p",), "rows"),
+           ("window_avg_running", "avg", None, ("p",), "rows"),
+           ("window_sum_range", "sum", N_W // 4, (), "range"),
+           ("window_max_range", "max", N_W // 4, ("p",), "range"))
+ANALYTIC_KERNELS = ("scan[int64]", "scan[float64]", "seg_scan[int32]")
 
 
 def fail(msg):
@@ -115,6 +144,15 @@ def compare_tables(got, want, what, tol=None):
     return err
 
 
+def bound_ms(nbytes):
+    """Least time for the card to move nbytes at its memory rate."""
+    return nbytes / HBM_BYTES_PER_MS
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def cuda_ms(fn, reps=5):
     """Mean device milliseconds of fn() over reps runs, after a warm-up."""
     fn()
@@ -173,8 +211,14 @@ def phase_compact(rng, dev):
             exact(g[:c], w[:c], f"compact {name} array {i}")
     ms = cuda_ms(lambda: kernels.compact(arrays, keep))
     plain = cuda_ms(lambda: kernels.compact_plain(arrays, keep))
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
-                shape=f"10M rows, int64+bool+float32+bool, 45% kept")
+    library = cuda_ms(lambda: [a[keep] for a in arrays])
+    kept = int(keep.sum())
+    moved = nbytes(keep, *arrays) + kept * sum(a.element_size()
+                                               for a in arrays)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=library,
+                bound_ms=bound_ms(moved), bound_by="bytes",
+                shape="10M rows, int64+bool+float32+bool, 45% kept; "
+                      "library: a[keep] per array")
 
 
 def phase_scan(rng, dev):
@@ -197,11 +241,22 @@ def phase_scan(rng, dev):
                             got, want, bound, REL[dtype], what))
                     else:
                         exact(got, want, what)
-    x = _values(rng, n, torch.int32, dev)
-    ms = cuda_ms(lambda: kernels.scan("sum", x))
-    plain = cuda_ms(lambda: kernels.scan_plain("sum", x))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                shape="11M int32 sum")
+    timed = {}
+    for dtype, m in ((torch.int32, n), (torch.int64, N_W),
+                     (torch.float64, N_W)):
+        x = _values(rng, m, dtype, dev)
+        timed[str(dtype).removeprefix("torch.")] = dict(
+            ms=cuda_ms(lambda: kernels.scan("sum", x)),
+            plain_ms=cuda_ms(lambda: kernels.scan_plain("sum", x)),
+            library_ms=cuda_ms(lambda: torch.cumsum(x, 0, dtype=x.dtype)),
+            bound_ms=bound_ms(2 * nbytes(x)), bound_by="bytes",
+            shape=f"{m} {dtype} inclusive sum")
+    for dt in ("int64", "float64"):
+        print(f"kernel scan[{dt}]: " + " ".join(
+            f"{k}={v}" for k, v in timed[dt].items()), flush=True)
+    return dict(max_abs_err=err, by_dtype={k: timed[k] for k in
+                                           ("int64", "float64")},
+                **timed["int32"])
 
 
 def phase_seg_scan(rng, dev):
@@ -227,7 +282,9 @@ def phase_seg_scan(rng, dev):
     f = torch.as_tensor(rng.random(n) < 0.25, device=dev)
     ms = cuda_ms(lambda: kernels.seg_scan("sum", f, x))
     plain = cuda_ms(lambda: kernels.seg_scan_plain("sum", f, x))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain,
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+                bound_ms=bound_ms(nbytes(f) + 2 * nbytes(x)),
+                bound_by="bytes",
                 shape="11M float32 segmented sum, groups of ~4")
 
 
@@ -254,7 +311,9 @@ def phase_expand(rng, dev):
     words = words[:3]
     ms = cuda_ms(lambda: kernels.expand_fill(pos, words, cap))
     plain = cuda_ms(lambda: kernels.expand_fill_plain(pos, words, cap))
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+    moved = nbytes(pos, *words) + cap * sum(w.element_size() for w in words)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None,
+                bound_ms=bound_ms(moved), bound_by="bytes",
                 shape="40M slots from 10M sources, 3 int32 words")
 
 
@@ -336,6 +395,158 @@ def check_main_path(gpu, cpu, dev):
         fail("main path: empty join or groupby")
 
 
+# -- the analytic path ------------------------------------------------------
+
+def make_analytic_data(seed=0):
+    """W as numpy: (columns, null masks)."""
+    rng = np.random.default_rng(seed)
+    n = N_W
+    cols = {"p": rng.integers(0, W_PARTS, n).astype(np.int32),
+            "o": rng.permutation(n).astype(np.int32),
+            "v": rng.standard_normal(n).astype(np.float32),
+            "q": rng.integers(-2**40, 2**40, n),
+            "x": rng.standard_normal(n)}
+    return cols, {"v": rng.random(n) < 0.10}
+
+
+def run_analytic_path(data, device):
+    """The analytic path on `device`; returns (results, per-op timings),
+    each operator ending in a device sync."""
+    cols, nulls = data
+    W = Table.from_dict(cols, nulls, device=device)
+    sync = (lambda: torch.cuda.synchronize(device)) \
+        if device.type == "cuda" else (lambda: None)
+    sync()
+    out, times = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        sync()
+        times[name] = (W.capacity, time.perf_counter() - t0)
+
+    for name, red, prec, pb, frame in WINDOWS:
+        timed(name, lambda: ops.window_function(
+            W, "v", red, preceding=prec, partition_by=pb, order_by=["o"],
+            frame=frame))
+    timed("prefixsum_int64", lambda: (ops.prefixsum(W["q"], True),
+                                      ops.prefixsum(W["q"], False)))
+    timed("prefixsum_float64", lambda: ops.prefixsum(W["x"]))
+    timed("reductions", lambda: [ops.reduce(W["v"], op) for op in
+                                 ("sum", "min", "max", "product",
+                                  "sum_squared")])
+    timed("quantiles", lambda: [ops.quantile_exact(W["v"], 0.5, m)
+                                for m in QMETHODS]
+          + [ops.quantile_approx(W["v"], 0.5)])
+    return out, times, W
+
+
+def sorted_running_abs(W, partition_by):
+    """Running sum of |v| over valid rows in a window's sort order (the
+    partition hash, then o), at each row in input order: the scale of its
+    float64 prefix sums' rounding error."""
+    v = W["v"]
+    a = torch.where(v.valid_or_true(), v.data.double().abs(), 0.0)
+    keys = {"o": W["o"].data}
+    if partition_by:
+        keys = {"h": ops.hash_columns([W[c] for c in partition_by]), **keys}
+    perm = ops.order_by(Table.from_dict(keys, device=W.device),
+                        list(keys)).long()
+    run = torch.empty_like(a)
+    run[perm] = torch.cumsum(a[perm], 0)
+    return run
+
+
+def check_analytic_path(gpu, cpu, W_cpu):
+    for name, red, _, pb, _ in WINDOWS:
+        g, c = gpu[name], cpu[name]
+        exact(g.valid.cpu(), c.valid, f"{name} validity")
+        if int(c.valid.sum()) < N_W // 2:
+            fail(f"{name}: too few valid rows")
+        gd = torch.where(c.valid, g.data.cpu(), 0.0)
+        cd = torch.where(c.valid, c.data, 0.0)
+        if red in ("min", "max"):
+            exact(gd, cd, name)
+        else:
+            running_sum_close(gd, cd, sorted_running_abs(W_cpu, pb), 2e-12,
+                              name)
+    for g, c, what in zip(gpu["prefixsum_int64"], cpu["prefixsum_int64"],
+                          ("inclusive", "exclusive")):
+        exact(g.data.cpu(), c.data, f"prefixsum int64 {what}")
+    x = W_cpu["x"].data
+    err = running_sum_close(gpu["prefixsum_float64"].data.cpu(),
+                            cpu["prefixsum_float64"].data,
+                            torch.cumsum(x.abs(), 0), 1e-12,
+                            "prefixsum float64")
+    scale = float(W_cpu["v"].data.double().abs().sum())
+    for op, g, c in zip(("sum", "min", "max", "product", "sum_squared"),
+                        gpu["reductions"], cpu["reductions"]):
+        g = g.cpu()
+        if op in ("min", "max"):
+            exact(g, c, f"reduce {op}")
+        elif not abs(float(g) - float(c)) <= 1e-5 * (scale + abs(float(c))):
+            fail(f"reduce {op}: {float(g)} vs {float(c)}")
+    for i, (g, c) in enumerate(zip(gpu["quantiles"], cpu["quantiles"])):
+        exact(g.cpu(), c, f"quantile {i}")
+    return err
+
+
+# __global__ functions of libgdf_tpu_torch/csrc/*.cu
+OWN_KERNELS = ("count_tiles", "scan_counts", "scatter_tiles",
+               "expand_fill_kernel", "tile_reduce", "tile_prefix",
+               "tile_scan")
+
+
+def profile_op(fn):
+    """torch.profiler over one call of fn after a warm-up: (wall us,
+    device busy us, device us in this package's kernels, kernel launches,
+    [(kernel, us), ...] top three). The profiler slows the host side, so
+    the busy share is a lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    kern = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            kern.append((e.key, float(us), e.count))
+    kern.sort(key=lambda k: -k[1])
+    busy = sum(k[1] for k in kern)
+    own = sum(k[1] for k in kern if any(o in k[0] for o in OWN_KERNELS))
+    return wall, busy, own, sum(k[2] for k in kern), [
+        (k[0][:90], k[1]) for k in kern[:3]]
+
+
+def drive(path, run, data, dev, card):
+    """Warm up, then run `path` with the launch counts reset just before
+    and read just after. Returns (results, times, launches, extra)."""
+    t0 = time.perf_counter()
+    run(data, dev)                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res = run(data, dev)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(f"{path} path launches {launches}", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for op, (rows, secs) in res[1].items():
+        print(f"op {op}: rows_in={rows} seconds={secs:.6f} "
+              f"rows_per_s={rows / secs:.4e} ({card})", flush=True)
+    print(f"{path} path peak device memory {peak:.2f} GiB; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return res, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -367,38 +578,55 @@ def main():
               f"{time.perf_counter() - t0:.1f} s)", flush=True)
 
     data = make_data(0)
-    run_main_path(data, dev)                       # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    gpu, times = run_main_path(data, dev)
-    launches = kernels.launch_counts()
-    print(f"launches {launches}", flush=True)
-    missing = [k for k, v in launches.items() if v == 0]
+    (gpu, times), launches = drive("main", run_main_path, data, dev, card)
+    missing = [k for k in SOURCES if launches[k] == 0]
     if missing:
         fail(f"main path launched no {missing}")
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    for op, (rows, secs) in times.items():
-        print(f"op {op}: rows_in={rows} seconds={secs:.6f} "
-              f"rows_per_s={rows / secs:.4e} ({card})", flush=True)
-    print(f"peak device memory {peak:.2f} GiB", flush=True)
-
     t0 = time.perf_counter()
-    cpu, cpu_times = run_main_path(data, torch.device("cpu"))
+    cpu, _ = run_main_path(data, torch.device("cpu"))
     print(f"cpu run of the main path {time.perf_counter() - t0:.1f} s",
           flush=True)
     check_main_path(gpu, cpu, dev)
     print("main path: GPU results match the CPU run", flush=True)
+    del gpu, cpu
+
+    adata = make_analytic_data(0)
+    (agpu, atimes, W), alaunches = drive("analytic", run_analytic_path,
+                                         adata, dev, card)
+    missing = [k for k in ANALYTIC_KERNELS if alaunches.get(k, 0) == 0]
+    if missing:
+        fail(f"analytic path launched no {missing}")
+    for name, red, prec, pb, frame in (WINDOWS[1], WINDOWS[4]):
+        wall, busy, own, nk, top = profile_op(lambda: ops.window_function(
+            W, "v", red, preceding=prec, partition_by=pb, order_by=["o"],
+            frame=frame))
+        print(f"profile {name}: wall_us={wall:.1f} device_busy_us="
+              f"{busy:.1f} share={busy / wall:.4f} own_kernels_us={own:.1f} "
+              f"kernels={nk} top={top} ({card})", flush=True)
+    del W
+    t0 = time.perf_counter()
+    acpu, _, W_cpu = run_analytic_path(adata, torch.device("cpu"))
+    print(f"cpu run of the analytic path {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    check_analytic_path(agpu, acpu, W_cpu)
+    print(f"analytic path: GPU results match the CPU run "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     pipeline = {op: {"rows_in": rows, "seconds": secs,
                      "rows_per_s": rows / secs}
-                for op, (rows, secs) in times.items()}
+                for op, (rows, secs) in {**times, **atimes}.items()}
     print(json.dumps({"pipeline": pipeline, "card": card}), flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1], "launches": launches[name],
-         "max_abs_err": stats[name]["max_abs_err"],
-         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+         "replaces": SOURCES[name][1],
+         "launches": launches[name] + alaunches[name],
+         "launches_by_path": {
+             "main": {k: v for k, v in launches.items()
+                      if k.split("[")[0] == name},
+             "analytic": {k: v for k, v in alaunches.items()
+                          if k.split("[")[0] == name}},
+         **{k: v for k, v in stats[name].items() if k != "shape"}}
         for name in SOURCES]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

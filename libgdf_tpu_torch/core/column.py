@@ -24,16 +24,30 @@ from .dtypes import DtypeInfo, GDFDtype, TimeUnit, dtype_from_numpy, physical_dt
 from .errors import GDFError, GDFStatus
 
 
+def host_data_device(device=None) -> torch.device:
+    """Where host (numpy) data goes: `device` if given, else the card. With
+    no CUDA device and no `device`, raises instead of choosing the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise GDFError(GDFStatus.GDF_CUDA_ERROR,
+                       "no CUDA device for host data; pass device='cpu' to "
+                       "build the column on the CPU")
+    return torch.device("cuda")
+
+
 def as_tensor(x, device=None, dtype: torch.dtype | None = None) -> torch.Tensor:
-    """numpy array / sequence / tensor -> tensor on `device` (None keeps a
-    tensor where it is and puts host data on the CPU)."""
+    """numpy array / sequence / tensor -> tensor on `device`. With `device`
+    None a tensor stays where it is and host data goes to the card
+    (host_data_device)."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     arr = np.asarray(x)
     if dtype is not None:
         np_dt = torch.empty((), dtype=dtype).numpy().dtype
         arr = arr.astype(np_dt, copy=False)
-    return torch.as_tensor(np.ascontiguousarray(arr), device=device)
+    return torch.as_tensor(np.ascontiguousarray(arr),
+                           device=host_data_device(device))
 
 
 @dataclass(frozen=True)
@@ -52,7 +66,10 @@ class Column:
         """Build a Column from numpy data or a tensor.
 
         ≅ gdf_column_view[_augmented] (src/column.cpp:175-214). `valid` may
-        be a bool array, a packed uint8 Arrow bitmask, or None."""
+        be a bool array, a packed uint8 Arrow bitmask, or None. numpy data
+        goes to `device`, by default the card (raises where there is none:
+        pass device="cpu"); a tensor stays on its device unless `device` is
+        given. `valid` follows the data."""
         if gdf_dtype is None:
             src_dt = (data.dtype if isinstance(data, torch.Tensor)
                       else np.asarray(data).dtype)
@@ -76,7 +93,10 @@ class Column:
     def from_masked(values, null_mask=None, name: str = "",
                     gdf_dtype: GDFDtype | None = None,
                     device=None) -> "Column":
-        """Convenience: `null_mask[i]=True` means row i is NULL."""
+        """Convenience: `null_mask[i]=True` means row i is NULL. Devices as
+        in from_array."""
+        if device is None and isinstance(values, torch.Tensor):
+            device = values.device
         valid = None
         if null_mask is not None:
             valid = ~as_tensor(null_mask, device, torch.bool)

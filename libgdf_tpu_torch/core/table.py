@@ -55,7 +55,8 @@ class Table:
                   device=None) -> "Table":
         """data: {name: numpy array or tensor}; nulls: {name: bool null-mask}
         (True = NULL). Tensors stay on their device unless `device` is
-        given; numpy data goes to `device` (default: the CPU)."""
+        given; numpy data goes to `device`, by default the card (raises
+        where there is none: pass device="cpu")."""
         nulls = nulls or {}
         cols = [Column.from_masked(v, nulls.get(k), name=k, device=device)
                 for k, v in data.items()]
@@ -67,6 +68,10 @@ class Table:
     def capacity(self) -> int:
         """Row capacity (tensor length)."""
         return self.columns[0].size
+
+    @property
+    def num_columns(self) -> int:
+        return len(self.columns)
 
     @property
     def device(self) -> torch.device:

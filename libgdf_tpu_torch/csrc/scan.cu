@@ -3,9 +3,9 @@
 // Replaces, from libgdf_tpu/ops/pallas/scan.py:
 //   H2 (no flags): _val_kernel / _run_val / scan_pallas (K2, l.101/745/801).
 //       The same template at int64 and float64 is the Hopper form of
-//       _sum64_kernel (K4a, l.215) and _sumff_kernel (K5a, l.340), which
-//       are not wired yet (their callers, ops/scan.py and window, are not
-//       ported).
+//       _sum64_kernel / cumsum64_pallas (K4a, l.215/664) and _sumff_kernel
+//       / cumsum_f64_pallas (K5a, l.340/428): prefixsum and the window's
+//       float64 prefix sums reach them through engine.cumsum.
 //   H3 (flags):   _pair_kernel / _run_pair / scan_pallas_pair (K3, l.122/
 //       772/808), _seg_sum64_kernel (K4b, l.241), _seg_sumff_kernel (K5b,
 //       l.366) and _seg_sel64_kernel (K6, l.551). The TPU split 64-bit

@@ -1,9 +1,10 @@
 """Carry tables between numpy and the port's tensors.
 
-`from_numpy` builds a Table on a chosen device from numpy columns and null
-masks; `to_numpy` brings a Table's live rows back (it reads `num_rows`, so
-it syncs). The tests feed the same numpy columns to this package and to
-`libgdf_tpu`, and compare the outputs through these two functions.
+`from_numpy` builds a Table from numpy columns and null masks, on the card
+unless the caller passes `device="cpu"`; `to_numpy` brings a Table's live
+rows back (it reads `num_rows`, so it syncs). The tests feed the same
+numpy columns to this package and to `libgdf_tpu`, and compare the
+outputs through these two functions.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ from .core.table import Table
 def from_numpy(columns: dict, nulls: dict | None = None,
                device=None) -> Table:
     """{name: array}, {name: bool null mask (True = NULL)} -> Table on
-    `device` (default: the CPU)."""
+    `device`, by default the card. Where there is no CUDA device it raises
+    unless `device="cpu"` is passed; it never falls back to the CPU."""
     return Table.from_dict(columns, nulls=nulls, device=device)
 
 

@@ -35,11 +35,24 @@ def multi_sort(operands: Sequence[torch.Tensor], num_keys: int):
     return [op[perm] for op in operands]
 
 
+# Sum dtypes H2 has no instance for -> the instance they run at; the sum
+# is cast back, which keeps the wrap of int8 / int16 (as the JAX package's
+# routing does, libgdf_tpu/ops/engine.py:170-187).
+_SUM_VIA = {torch.float16: torch.float32, torch.int8: torch.int32,
+            torch.int16: torch.int32}
+
+
 def cumsum(x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
-    """Inclusive prefix sum in `dtype` (default: x's dtype)."""
+    """Inclusive prefix sum in `dtype` (default: x's dtype). int32, int64,
+    float32 and float64 run at their own H2 instance (int64 and float64
+    replace the TPU's K4a and K5a); float16 runs at float32 and int8 and
+    int16 at int32, cast back."""
     if dtype is not None:
         x = x.to(dtype)
-    return scan("sum", x)
+    via = _SUM_VIA.get(x.dtype)
+    if via is None:
+        return scan("sum", x)
+    return scan("sum", x.to(via)).to(x.dtype)
 
 
 def cummax(x: torch.Tensor) -> torch.Tensor:

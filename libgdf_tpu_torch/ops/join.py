@@ -57,6 +57,34 @@ def _join_keys(table: Table, names: Sequence[str]):
     return keys, widths, no_match
 
 
+def lex_searchsorted(sorted_keys, query_keys, side: str) -> torch.Tensor:
+    """For each query row, its insertion point (int32) into the
+    lexicographically sorted multi-key tensors ("left": before equal rows,
+    "right": after them). Every query advances in lockstep: ceil(log2(n+1))
+    rounds of one gather and compare per key column, as in
+    libgdf_tpu/ops/join.py::lex_searchsorted. Keys are compared as signed
+    tensors (the port's signed-form encodings). Window RANGE frames use it;
+    the join itself does not."""
+    n = sorted_keys[0].shape[0]
+    m = query_keys[0].shape[0]
+    dev = query_keys[0].device
+    lo = torch.zeros(m, dtype=torch.int64, device=dev)
+    hi = torch.full((m,), n, dtype=torch.int64, device=dev)
+    for _ in range(max(1, (n + 1).bit_length())):
+        mid = (lo + hi) >> 1
+        at = mid.clamp(0, max(n - 1, 0))
+        lt = torch.zeros(m, dtype=torch.bool, device=dev)
+        eq = torch.ones(m, dtype=torch.bool, device=dev)
+        for s, q in zip(sorted_keys, query_keys):
+            sv = s[at] if n else torch.zeros_like(q)
+            lt = lt | (eq & (sv < q))
+            eq = eq & (sv == q)
+        go_right = ((lt | eq) if side == "right" else lt) & (lo < hi)
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(go_right | (lo >= hi), hi, mid)
+    return lo.to(torch.int32)
+
+
 def join_indices(left: Table, right: Table, left_on: Sequence[str],
                  right_on: Sequence[str], how: str = "inner",
                  out_capacity: int | None = None,

@@ -2,7 +2,8 @@
 
 Counterpart of `libgdf_tpu/ops/pallas/`. Each wrapper runs its plain
 PyTorch version on CPU tensors and launches its kernel on CUDA tensors,
-and counts its launches in a plain int attribute, `launches`.
+and counts its launches in a plain int attribute, `launches`; the scans
+also count them per value dtype (`launches_by_dtype`).
 
   H1 compact      compact.py  <- pallas/compact.py, pallas/compact2.py
   H2 scan         scan.py     <- pallas/scan.py (value scans)
@@ -19,12 +20,20 @@ WRAPPERS = {"compact": compact, "scan": scan, "seg_scan": seg_scan,
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    """{wrapper: launches}, plus {"wrapper[dtype]": launches} for each
+    value dtype a scan has launched at since the last reset."""
+    counts = {name: fn.launches for name, fn in WRAPPERS.items()}
+    for name, fn in WRAPPERS.items():
+        for dt, k in getattr(fn, "launches_by_dtype", {}).items():
+            counts[f"{name}[{dt}]"] = k
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_dtype"):
+            fn.launches_by_dtype = {}
 
 
 __all__ = [

@@ -12,7 +12,9 @@ raises.
                               keep their own value.
 
 Value dtypes: int32, int64, float32, float64. Integer sums wrap; float
-max/min propagate NaN.
+max/min propagate NaN. Each wrapper counts its launches in total
+(`launches`) and per value dtype (`launches_by_dtype`, keyed "int64" and
+so on): H2 at int64 and float64 is what replaces the TPU's K4a and K5a.
 """
 from __future__ import annotations
 
@@ -98,11 +100,18 @@ def scan(kind: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
         return torch.flip(scan(kind, torch.flip(x, [0])), [0])
     out = _launch("scan", kind, None, x)
     if x.shape[0]:
-        scan.launches += 1
+        _count(scan, x.dtype)
     return out
 
 
+def _count(wrapper, dtype: torch.dtype) -> None:
+    wrapper.launches += 1
+    key = str(dtype).removeprefix("torch.")
+    wrapper.launches_by_dtype[key] = wrapper.launches_by_dtype.get(key, 0) + 1
+
+
 scan.launches = 0
+scan.launches_by_dtype = {}
 
 
 def seg_scan(kind: str, flags: torch.Tensor, vals: torch.Tensor):
@@ -118,8 +127,9 @@ def seg_scan(kind: str, flags: torch.Tensor, vals: torch.Tensor):
         flags = flags != 0
     out = _launch("seg_scan", kind, flags, vals)
     if vals.shape[0]:
-        seg_scan.launches += 1
+        _count(seg_scan, vals.dtype)
     return out
 
 
 seg_scan.launches = 0
+seg_scan.launches_by_dtype = {}

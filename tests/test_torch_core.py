@@ -100,6 +100,24 @@ def test_from_dict_accepts_tensors_and_keeps_device():
     assert int(t["a"].null_count()) == 1
 
 
+def test_host_data_goes_to_the_card_by_default(monkeypatch):
+    """With `device` omitted, numpy data is meant for the card: where there
+    is none the constructors raise and name device="cpu"; they never hand
+    back CPU tensors. A tensor stays on its own device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cols = {"a": np.arange(4, dtype=np.int32)}
+    for build in (lambda: from_numpy(cols),
+                  lambda: Table.from_dict(cols),
+                  lambda: Column.from_array(cols["a"]),
+                  lambda: Column.from_masked(cols["a"], np.zeros(4, bool))):
+        with pytest.raises(errors.GDFError, match="device='cpu'"):
+            build()
+    t = from_numpy(cols, {"a": np.array([0, 1, 0, 0], bool)}, device="cpu")
+    assert t.device.type == "cpu" and t["a"].valid.device.type == "cpu"
+    c = Column.from_masked(torch.arange(3), np.array([0, 1, 0], bool))
+    assert c.device.type == "cpu" and c.valid.tolist() == [True, False, True]
+
+
 @pytest.mark.parametrize("num_rows", [0, 3, 5])
 def test_live_mask_row_validity_compact(num_rows):
     jt, tt = make_tables(COLUMNS, NULLS, num_rows=num_rows)
@@ -123,7 +141,8 @@ def test_bitmask_pack_unpack(n):
         packed.numpy(), np.asarray(jbitmask.pack_bool_mask(jnp.asarray(v))))
     np.testing.assert_array_equal(bitmask.unpack_bitmask(packed, n).numpy(),
                                   v)
-    col = Column.from_array(np.arange(n, dtype=np.int32), valid=packed)
+    col = Column.from_array(np.arange(n, dtype=np.int32), valid=packed,
+                            device="cpu")
     if n % 8:
         np.testing.assert_array_equal(col.valid.numpy(), v)
 
@@ -140,7 +159,7 @@ def test_metrics_record_filter_events():
     metrics.reset()
     metrics.enable(True)
     try:
-        t = from_numpy({"a": np.arange(10, dtype=np.int32)})
+        t = from_numpy({"a": np.arange(10, dtype=np.int32)}, device="cpu")
         ops.filter_table(t, ops.compare_scalar(t["a"], 4, "lt"))
     finally:
         metrics.enable(False)

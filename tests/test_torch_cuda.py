@@ -190,3 +190,75 @@ def test_pipeline_gpu_matches_cpu(dev):
                                atol=0)
     torch.testing.assert_close(outs["cpu"][2], outs["cuda"][2], rtol=0,
                                atol=0)
+
+
+def _analytic_table(n, device, seed):
+    from libgdf_tpu_torch import Table
+    rng = np.random.default_rng(seed)
+    cols = {"p": rng.integers(0, 7, n).astype(np.int32),
+            "o": rng.integers(0, max(n // 3, 1), n).astype(np.int32),
+            "v": rng.standard_normal(n).astype(np.float32),
+            "q": rng.integers(-2**62, 2**62, n),
+            "x": rng.standard_normal(n) * np.exp(rng.uniform(-9, 9, n))}
+    return Table.from_dict(cols, {"v": rng.random(n) < 0.1}, device=device)
+
+
+@pytest.mark.parametrize("n", [1, 2049, 100_003])
+@pytest.mark.parametrize("red", ["sum", "min", "max", "count", "avg", "var"])
+@pytest.mark.parametrize("frame,preceding", [("rows", 300), ("rows", None),
+                                             ("range", 50)])
+def test_window_gpu_matches_cpu(dev, n, red, frame, preceding):
+    """min, max, count and validity exact; the sum family within 2e-12 of
+    the total sum of |v| (or of v^2 for var): its float64 prefix sums run
+    over the whole sorted column, in another order on the card."""
+    from libgdf_tpu_torch import ops
+    outs = {}
+    for d in ("cpu", "cuda"):
+        t = _analytic_table(n, d, n)
+        outs[d] = ops.window_function(t, "v", red, preceding=preceding,
+                                      partition_by=["p"], order_by=["o"],
+                                      frame=frame)
+    g, c = outs["cuda"], outs["cpu"]
+    torch.testing.assert_close(g.valid.cpu(), c.valid, rtol=0, atol=0)
+    gd = torch.where(c.valid, g.data.cpu(), 0.0)
+    cd = torch.where(c.valid, c.data, 0.0)
+    if red in ("min", "max", "count"):
+        torch.testing.assert_close(gd, cd, rtol=0, atol=0)
+        return
+    v = _analytic_table(n, "cpu", n)["v"].data.double()
+    scale = (v * v).sum() if red == "var" else v.abs().sum()
+    assert bool(((gd - cd).abs() <= 2e-12 * scale + 1e-12).all())
+
+
+@pytest.mark.parametrize("n", [1, 2047, 2048, 100_003, 3_000_000])
+def test_prefixsum_gpu_matches_cpu(dev, n):
+    """int64 exact (H2 at int64 wraps as the plain version does); float64
+    within 1e-12 of the running sum of |x|."""
+    from libgdf_tpu_torch import ops
+    t, c = _analytic_table(n, "cuda", n), _analytic_table(n, "cpu", n)
+    for inclusive in (True, False):
+        torch.testing.assert_close(ops.prefixsum(t["q"], inclusive).data.cpu(),
+                                   ops.prefixsum(c["q"], inclusive).data,
+                                   rtol=0, atol=0)
+    got = ops.prefixsum(t["x"]).data.cpu()
+    want = ops.prefixsum(c["x"]).data
+    bound = 1e-12 * torch.cumsum(c["x"].data.abs(), 0) + 1e-12
+    assert bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("n", [1, 2049, 100_003])
+def test_quantiles_and_reductions_gpu_match_cpu(dev, n):
+    from libgdf_tpu_torch import ops
+    t, c = _analytic_table(n, "cuda", n), _analytic_table(n, "cpu", n)
+    for m in ("linear", "lower", "higher", "midpoint", "nearest"):
+        for q in (0.0, 0.5, 0.9, 1.0):
+            assert float(ops.quantile_exact(t["v"], q, m)) == \
+                float(ops.quantile_exact(c["v"], q, m))
+    assert float(ops.quantile_approx(t["v"], 0.3)) == \
+        float(ops.quantile_approx(c["v"], 0.3))
+    for op in ("min", "max"):
+        assert float(ops.reduce(t["v"], op)) == float(ops.reduce(c["v"], op))
+    assert int(ops.reduce(t["q"], "sum")) == int(ops.reduce(c["q"], "sum"))
+    torch.testing.assert_close(ops.reduce(t["v"], "sum").cpu(),
+                               ops.reduce(c["v"], "sum"), rtol=1e-5,
+                               atol=1e-5 * float(c["v"].data.abs().sum()))

@@ -9,8 +9,8 @@ crossed at CPU-test sizes.
 
 Tolerances: integers, counts, flags and row order exact; float32 sums
 rtol=2e-5, atol=2e-4 (associative scans add in another order, as in
-tests/test_pallas_scan.py); float64 sums rtol=1e-12 (the Pallas kernel's
-double-float error is ~2^-47).
+tests/test_pallas_scan.py); float64 sums rtol=1e-12, atol=1e-12 * max|x|
+(the Pallas kernels' double-float error is ~2^-47).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -33,8 +33,8 @@ def tiny(monkeypatch):
         monkeypatch.setattr(mod, "ROWS", 8)
         monkeypatch.setattr(mod, "BLOCK", B)
     runs = (compact._run, compact2._run, expand._run, ps._run_val,
-            ps._run_pair, ps._run_seg_sum64, ps._run_seg_sumff,
-            ps._run_seg_sel64)
+            ps._run_pair, ps._run_sum64, ps._run_sumff, ps._run_seg_sum64,
+            ps._run_seg_sumff, ps._run_seg_sel64)
     for r in runs:
         r.clear_cache()
     yield
@@ -80,6 +80,29 @@ def test_scan_plain_matches_pallas(tiny, rng, n, dtype):
             np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-4)
         else:
             np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [0, 2 * B + 101])
+def test_scan_plain_matches_pallas_sum64(tiny, rng, n):
+    """H2 at int64 (the Hopper form of K4a): exact, wrapping int64 sums.
+    Values near +-2^62 make the running sum wrap many times."""
+    x = rng.integers(2**62 - 2**40, 2**62, n).astype(np.int64)
+    x[rng.random(n) < 0.5] *= -1
+    got = kernels.scan_plain("sum", t(x)).numpy()
+    want = np.asarray(ps.cumsum64_pallas(jnp.asarray(x), interpret=True))
+    np.testing.assert_array_equal(got, want)
+    assert n == 0 or (np.diff(got.astype(np.float64)) * x[1:] < 0).any()
+
+
+@pytest.mark.parametrize("n", [0, 2 * B + 101])
+def test_scan_plain_matches_pallas_sum_f64(tiny, rng, n):
+    """H2 at float64 (the Hopper form of K5a) against the double-float
+    Pallas kernel (~2^-47 relative)."""
+    x = rng.standard_normal(n) * np.exp(rng.uniform(-20, 20, n))
+    got = kernels.scan_plain("sum", t(x)).numpy()
+    want = np.asarray(ps.cumsum_f64_pallas(jnp.asarray(x), interpret=True))
+    atol = np.abs(x).max() * 1e-12 if n else 0
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=atol)
 
 
 @pytest.mark.parametrize("n", [0, 2 * B + 101])

@@ -75,8 +75,8 @@ def _check(seed, kdt, dup, how):
 
     # order_by, exact, on identical input: the JAX groupby's output
     values, nulls = jax_to_numpy(jg)
-    again = tops.order_by(from_numpy(values, nulls), ["s"], ascending=False,
-                          nulls_last=True)
+    again = tops.order_by(from_numpy(values, nulls, device="cpu"), ["s"],
+                          ascending=False, nulls_last=True)
     g = len(values["s"])
     np.testing.assert_array_equal(np_of(again), np_of(jp)[:g])
     # and the port's own order sorts its own sums the same way
@@ -95,3 +95,77 @@ def test_pipeline_matches_jax(seed, kdt):
 def test_pipeline_duplicate_build_keys(how):
     """Build keys repeated 3 times: the join's general path (H4 on CUDA)."""
     _check(4, np.int64, dup=True, how=how)
+
+
+# -- the analytic path: windows, prefix sums, reductions, quantiles ---------
+
+NA, PARTS = 5000, 7
+WINDOWS = (("v", "min", 100, ("p",), "rows"),
+           ("v", "sum", 100, ("p",), "rows"),
+           ("v", "avg", None, ("p",), "rows"),
+           ("v", "sum", NA // 4, (), "range"),
+           ("v", "max", NA // 4, ("p",), "range"))
+QMETHODS = ("linear", "lower", "higher", "midpoint", "nearest")
+
+
+def _analytic(O, W):
+    """chip_smoke.py's analytic path: five windows over (p, o), prefix
+    sums of q and x, reductions and quantiles of v."""
+    out = [O.window_function(W, val, red, preceding=prec, partition_by=pb,
+                             order_by=("o",), frame=frame)
+           for val, red, prec, pb, frame in WINDOWS]
+    out += [O.prefixsum(W["q"], True), O.prefixsum(W["q"], False),
+            O.prefixsum(W["x"], True)]
+    out += [O.reduce(W["v"], op) for op in
+            ("sum", "min", "max", "product", "sum_squared")]
+    out += [O.quantile_exact(W["v"], 0.5, m) for m in QMETHODS]
+    out.append(O.quantile_approx(W["v"], 0.5))
+    return out
+
+
+_jax_analytic = jax.jit(lambda W: _analytic(jops, W))
+
+
+def analytic_data(rng, n, parts):
+    """The analytic table: partition p, order o (a permutation), value v
+    (float32, 10% NULL), q (int64 in [-2^40, 2^40)) and x (float64)."""
+    cols = {"p": rng.integers(0, parts, n).astype(np.int32),
+            "o": rng.permutation(n).astype(np.int32),
+            "v": rng.standard_normal(n).astype(np.float32),
+            "q": rng.integers(-2**40, 2**40, n),
+            "x": rng.standard_normal(n)}
+    return cols, {"v": rng.random(n) < 0.10}
+
+
+def test_analytic_path_matches_jax():
+    """Windows: min / max / count and validity exact, sums and averages
+    rtol=1e-9, atol=1e-9 (float64 prefix sums in another order); prefix
+    sums of q exact, of x within 1e-12 of the running sum of |x|; integer
+    results and quantiles exact; float32 reductions rtol=1e-5 with
+    atol=1e-5 * sum|v| (another summation order)."""
+    cols, nulls = analytic_data(np.random.default_rng(7), NA, PARTS)
+    jt, tt = make_tables(cols, nulls)
+    want = _jax_analytic(jt)
+    got = _analytic(tops, tt)
+    for (_, red, *_), g, w in zip(WINDOWS, got[:5], want[:5]):
+        gv, wv = np_of(g.valid), np_of(w.valid)
+        np.testing.assert_array_equal(gv, wv, err_msg=red)
+        assert gv.sum() > NA // 2
+        gd, wd = np_of(g.data)[wv], np_of(w.data)[wv]
+        if red in ("min", "max"):
+            np.testing.assert_array_equal(gd, wd, err_msg=red)
+        else:
+            np.testing.assert_allclose(gd, wd, rtol=1e-9, atol=1e-9,
+                                       err_msg=red)
+    for g, w in zip(got[5:7], want[5:7]):
+        np.testing.assert_array_equal(np_of(g.data), np_of(w.data))
+    bound = 1e-12 * np.cumsum(np.abs(cols["x"])) + 1e-12
+    assert (np.abs(np_of(got[7].data) - np_of(want[7].data)) <= bound).all()
+    for i, (g, w) in enumerate(zip(got[8:], want[8:])):
+        g, w = np_of(g), np_of(w)
+        assert g.dtype == w.dtype, i
+        if i in (0, 3, 4):        # float32 sum, product, sum of squares
+            scale = np.abs(cols["v"].astype(np.float64)).sum()
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5 * scale)
+        else:
+            assert g == w, i

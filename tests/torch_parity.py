@@ -17,7 +17,7 @@ def make_tables(columns, nulls=None, num_rows=None):
     """The same data as a libgdf_tpu Table and a libgdf_tpu_torch Table
     (CPU tensors); `num_rows` makes both capacity + count tables."""
     jt = libgdf_tpu.Table.from_dict(columns, nulls=nulls)
-    tt = from_numpy(columns, nulls)
+    tt = from_numpy(columns, nulls, device="cpu")
     if num_rows is not None:
         jt = jt.with_num_rows(num_rows)
         tt = tt.with_num_rows(num_rows)
