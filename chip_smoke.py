@@ -11,10 +11,16 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    its plain PyTorch version on CUDA tensors, at the main path's sizes and
    at ragged and edge sizes, and times the kernel, its plain version and,
    where one PyTorch call computes the same function, that call, with CUDA
-   events. H2 is also timed at int64 and float64 over 10M elements (its
-   instances that replace the TPU's K4a and K5a). Each kernel's bound is
-   the bytes it must move (inputs read once, outputs written once) over
-   the H100's 3.35 TB/s.
+   events, the kernel's own device time per call from torch.profiler (and
+   torch.cumsum's, beside H2's) and the wrapper's host time to enqueue a
+   call.
+   H2 is also timed at int64 and float64 over 10M elements (its instances
+   that replace the TPU's K4a and K5a), and H3 at 10M for an int64 sum
+   (K4b), a float64 sum (K5b) and an int64 max over encodings (K6). H2's
+   look-back is checked for races: 10M ones scan to exactly 1..n (int32
+   and int64, forward and reverse), and 50 int64 sums of one input are
+   bit-identical. Each kernel's bound is the bytes it must move (inputs
+   read once, outputs written once) over the H100's 3.35 TB/s.
 4. Drives the main path at full size: a 10M-row fact table against a
    1M-row dimension, filter -> inner join -> groupby -> order_by, then a
    10M x 1M inner join whose build side repeats each key 4 times.
@@ -55,6 +61,7 @@ import torch
 
 from libgdf_tpu_torch import Table, ops
 from libgdf_tpu_torch.ops import kernels
+from libgdf_tpu_torch.ops.sort import radix_encode
 
 SOURCES = {
     "compact": ("libgdf_tpu_torch/csrc/compact.cu",
@@ -69,7 +76,10 @@ SOURCES = {
                     "libgdf_tpu/ops/pallas/expand.py:210"),
 }
 REL = {torch.float32: 2e-4, torch.float64: 1e-12}
-EDGE_SIZES = (1, 2047, 2048, 2049, 100_003)
+# the edges of H1's and H3's 2048-element tiles, H2's 32 KB tiles (8192
+# 4-byte or 4096 8-byte elements) and H4's 4096-slot runs
+EDGE_SIZES = (1, 2047, 2048, 2049, 4095, 4096, 4097, 8191, 8192, 8193,
+              37 * 8192 + 1, 100_003)
 N_FACT, N_DIM, MULT = 10_000_000, 1_000_000, 4
 AGGS = [("v", "sum", "s"), ("v", "count", "c"), ("v", "avg", "a"),
         ("w", "max", "hi")]
@@ -84,6 +94,12 @@ WINDOWS = (("window_min_rows", "min", 10_000, ("p",), "rows"),
            ("window_sum_range", "sum", N_W // 4, (), "range"),
            ("window_max_range", "max", N_W // 4, ("p",), "range"))
 ANALYTIC_KERNELS = ("scan[int64]", "scan[float64]", "seg_scan[int32]")
+# __global__ functions of libgdf_tpu_torch/csrc/*.cu, by wrapper
+KERNEL_NAMES = {"compact": ("count_tiles", "scan_counts", "scatter_tiles"),
+                "scan": ("scan_lookback",),
+                "seg_scan": ("tile_reduce", "tile_prefix", "tile_scan"),
+                "expand_fill": ("expand_fill_runs",)}
+OWN_KERNELS = tuple(k for names in KERNEL_NAMES.values() for k in names)
 
 
 def fail(msg):
@@ -153,6 +169,47 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _device_us(event):
+    us = getattr(event, "self_device_time_total", None)
+    return float(event.self_cuda_time_total if us is None else us)
+
+
+def profiled_ms(fn, names, reps=5):
+    """Device milliseconds per call of fn() in the kernels whose names
+    contain one of `names`, from torch.profiler over reps calls after a
+    warm-up; None if three profiles in a row saw no such kernel (a
+    profile now and then comes back without device events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_device_us(e) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and any(n in e.key for n in names))
+        if us:
+            return us / reps / 1e3
+    return None
+
+
+def host_ms(fn, reps=20):
+    """Mean host milliseconds to enqueue fn() (no sync inside the loop),
+    after a warm-up. Where it exceeds the kernel's device time, a CUDA-event
+    time of back-to-back calls measures the host, not the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
 def cuda_ms(fn, reps=5):
     """Mean device milliseconds of fn() over reps runs, after a warm-up."""
     fn()
@@ -210,13 +267,17 @@ def phase_compact(rng, dev):
         for i, (g, w) in enumerate(zip(got, want)):
             exact(g[:c], w[:c], f"compact {name} array {i}")
     ms = cuda_ms(lambda: kernels.compact(arrays, keep))
+    dev_ms = profiled_ms(lambda: kernels.compact(arrays, keep),
+                         KERNEL_NAMES["compact"])
+    host = host_ms(lambda: kernels.compact(arrays, keep))
     plain = cuda_ms(lambda: kernels.compact_plain(arrays, keep))
     library = cuda_ms(lambda: [a[keep] for a in arrays])
     kept = int(keep.sum())
     moved = nbytes(keep, *arrays) + kept * sum(a.element_size()
                                                for a in arrays)
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=library,
-                bound_ms=bound_ms(moved), bound_by="bytes",
+    return dict(max_abs_err=0.0, ms=ms, profiler_ms=dev_ms, host_ms=host,
+                plain_ms=plain, library_ms=library, bound_ms=bound_ms(moved),
+                bound_by="bytes",
                 shape="10M rows, int64+bool+float32+bool, 45% kept; "
                       "library: a[keep] per array")
 
@@ -241,22 +302,48 @@ def phase_scan(rng, dev):
                             got, want, bound, REL[dtype], what))
                     else:
                         exact(got, want, what)
+    check_look_back(rng, dev)
     timed = {}
     for dtype, m in ((torch.int32, n), (torch.int64, N_W),
                      (torch.float64, N_W)):
         x = _values(rng, m, dtype, dev)
         timed[str(dtype).removeprefix("torch.")] = dict(
             ms=cuda_ms(lambda: kernels.scan("sum", x)),
+            profiler_ms=profiled_ms(lambda: kernels.scan("sum", x),
+                                    KERNEL_NAMES["scan"]),
+            host_ms=host_ms(lambda: kernels.scan("sum", x)),
             plain_ms=cuda_ms(lambda: kernels.scan_plain("sum", x)),
             library_ms=cuda_ms(lambda: torch.cumsum(x, 0, dtype=x.dtype)),
+            # every kernel of one torch.cumsum call (CUB's init and scan)
+            library_profiler_ms=profiled_ms(
+                lambda: torch.cumsum(x, 0, dtype=x.dtype), ("",)),
             bound_ms=bound_ms(2 * nbytes(x)), bound_by="bytes",
             shape=f"{m} {dtype} inclusive sum")
-    for dt in ("int64", "float64"):
+    for dt in ("int32", "int64", "float64"):
         print(f"kernel scan[{dt}]: " + " ".join(
             f"{k}={v}" for k, v in timed[dt].items()), flush=True)
     return dict(max_abs_err=err, by_dtype={k: timed[k] for k in
                                            ("int64", "float64")},
                 **timed["int32"])
+
+
+def check_look_back(rng, dev):
+    """H2's look-back against races: 10M ones scan to exactly 1..n, forward
+    and reverse, at int32 and int64; 50 int64 sums of one input are
+    bit-identical to the first and to the plain version."""
+    for dtype in (torch.int32, torch.int64):
+        ones = torch.ones(N_W, dtype=dtype, device=dev)
+        want = torch.arange(1, N_W + 1, dtype=dtype, device=dev)
+        exact(kernels.scan("sum", ones), want, f"scan of ones {dtype}")
+        exact(kernels.scan("sum", ones, reverse=True), want.flip(0),
+              f"reverse scan of ones {dtype}")
+    x = _values(rng, N_W, torch.int64, dev) * 123_457
+    first = kernels.scan("sum", x)
+    exact(first, kernels.scan_plain("sum", x), "int64 sum")
+    for i in range(50):
+        exact(kernels.scan("sum", x), first, f"int64 sum, repeat {i}")
+    print("scan look-back: ones exact, 50 int64 sums bit-identical",
+          flush=True)
 
 
 def phase_seg_scan(rng, dev):
@@ -278,20 +365,40 @@ def phase_seg_scan(rng, dev):
                         got, want, bound, REL[dtype], what))
                 else:
                     exact(got, want, what)
-    x = _values(rng, n, torch.float32, dev)
-    f = torch.as_tensor(rng.random(n) < 0.25, device=dev)
-    ms = cuda_ms(lambda: kernels.seg_scan("sum", f, x))
-    plain = cuda_ms(lambda: kernels.seg_scan_plain("sum", f, x))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
-                bound_ms=bound_ms(nbytes(f) + 2 * nbytes(x)),
-                bound_by="bytes",
-                shape="11M float32 segmented sum, groups of ~4")
+    timed = {}
+    for name, kind, dtype, m in (
+            ("K3 float32 sum", "sum", torch.float32, n),
+            ("K4b int64 sum", "sum", torch.int64, N_W),
+            ("K5b float64 sum", "sum", torch.float64, N_W),
+            ("K6 int64 max over encodings", "max", torch.float64, N_W)):
+        x = _values(rng, m, dtype, dev)
+        if name.startswith("K6"):
+            x = radix_encode(x)
+        f = torch.as_tensor(rng.random(m) < 0.25, device=dev)
+        timed[name] = dict(
+            ms=cuda_ms(lambda: kernels.seg_scan(kind, f, x)),
+            profiler_ms=profiled_ms(lambda: kernels.seg_scan(kind, f, x),
+                                    KERNEL_NAMES["seg_scan"]),
+            host_ms=host_ms(lambda: kernels.seg_scan(kind, f, x)),
+            plain_ms=cuda_ms(lambda: kernels.seg_scan_plain(kind, f, x)),
+            library_ms=None, bound_ms=bound_ms(nbytes(f) + 2 * nbytes(x)),
+            bound_by="bytes", shape=f"{m} {name}, groups of ~4")
+    for name, t in list(timed.items())[1:]:
+        print(f"kernel seg_scan[{name}]: " + " ".join(
+            f"{k}={v}" for k, v in t.items()), flush=True)
+    return dict(max_abs_err=err, by_instance={k: timed[k] for k in
+                                              list(timed)[1:]},
+                **timed["K3 float32 sum"])
 
 
 def phase_expand(rng, dev):
     cases = []
+    # the main path's shape, edges of the 4096-slot runs, sources further
+    # apart than a run with the first after slot 0, and no source at all
     for cap, nsrc in [(N_FACT * MULT, N_FACT), (1, 1), (2049, 300),
-                      (100_003, 90_000), (5000, 0)]:
+                      (4095, 1000), (4096, 4096), (4097, 2000),
+                      (37 * 4096 + 1, 30_000), (100_003, 90_000),
+                      (1_000_000, 100), (5000, 0)]:
         pos = np.cumsum(rng.integers(1, 2 * max(cap // max(nsrc, 1), 1),
                                      nsrc)) - 1
         pos = np.concatenate([pos[pos < cap],
@@ -310,9 +417,13 @@ def phase_expand(rng, dev):
     cap, pos, words = cases[0]
     words = words[:3]
     ms = cuda_ms(lambda: kernels.expand_fill(pos, words, cap))
+    dev_ms = profiled_ms(lambda: kernels.expand_fill(pos, words, cap),
+                         KERNEL_NAMES["expand_fill"])
+    host = host_ms(lambda: kernels.expand_fill(pos, words, cap))
     plain = cuda_ms(lambda: kernels.expand_fill_plain(pos, words, cap))
     moved = nbytes(pos, *words) + cap * sum(w.element_size() for w in words)
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None,
+    return dict(max_abs_err=0.0, ms=ms, profiler_ms=dev_ms, host_ms=host,
+                plain_ms=plain, library_ms=None,
                 bound_ms=bound_ms(moved), bound_by="bytes",
                 shape="40M slots from 10M sources, 3 int32 words")
 
@@ -491,10 +602,6 @@ def check_analytic_path(gpu, cpu, W_cpu):
     return err
 
 
-# __global__ functions of libgdf_tpu_torch/csrc/*.cu
-OWN_KERNELS = ("count_tiles", "scan_counts", "scatter_tiles",
-               "expand_fill_kernel", "tile_reduce", "tile_prefix",
-               "tile_scan")
 
 
 def profile_op(fn):
@@ -512,13 +619,8 @@ def profile_op(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e6
-    kern = []
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            kern.append((e.key, float(us), e.count))
+    kern = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
     kern.sort(key=lambda k: -k[1])
     busy = sum(k[1] for k in kern)
     own = sum(k[1] for k in kern if any(o in k[0] for o in OWN_KERNELS))
@@ -573,7 +675,9 @@ def main():
         stats[name] = phase(rng, dev)
         st = stats[name]
         print(f"kernel {name}: max_abs_err={st['max_abs_err']} "
-              f"ms={st['ms']:.4f} plain_ms={st['plain_ms']:.4f} "
+              f"ms={st['ms']:.4f} profiler_ms={st['profiler_ms']} "
+              f"host_ms={st['host_ms']:.4f} "
+              f"plain_ms={st['plain_ms']:.4f} bound_ms={st['bound_ms']:.4f} "
               f"({st['shape']}; {card}; phase "
               f"{time.perf_counter() - t0:.1f} s)", flush=True)
 

@@ -31,6 +31,15 @@ def f64_ieee_bits(x: torch.Tensor) -> torch.Tensor:
                        torch.full_like(bits, CANONICAL_NAN_BITS), bits)
 
 
+def flush_float_keys(data: torch.Tensor) -> torch.Tensor:
+    """A float32 or float64 key column as the JAX package compares it:
+    -0.0 and every denormal become +0.0. Its `where(data == 0, 0, data)`
+    fix-up for join and groupby keys runs under XLA, which flushes
+    denormals in comparisons; torch does not, on the CPU or the card."""
+    zero = data.abs() < torch.finfo(data.dtype).tiny
+    return torch.where(zero, torch.zeros_like(data), data)
+
+
 _MASK = {1: 0xFF, 2: 0xFFFF, 4: 0xFFFFFFFF}
 _SAME_WIDTH_INT = {1: torch.int8, 2: torch.int16, 4: torch.int32}
 

@@ -24,6 +24,7 @@ from typing import Sequence
 import torch
 
 from ..core.bitmask import mask_or
+from ..core.bits import flush_float_keys
 from ..core.column import Column
 from ..core.dtypes import DtypeInfo, GDFDtype, dtype_from_numpy
 from ..core.errors import GDFStatus, require
@@ -88,7 +89,7 @@ def _groupby_impl(table: Table, key_names, aggs, dropna: bool) -> Table:
     for j, c in enumerate(key_cols):
         data = c.data
         if data.is_floating_point():
-            data = torch.where(data == 0, torch.zeros_like(data), data)
+            data = flush_float_keys(data)
         w = radix_width(data.dtype)
         widths.append(w)
         if key_nullable[j]:

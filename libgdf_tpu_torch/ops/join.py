@@ -24,6 +24,7 @@ from typing import Sequence
 import torch
 
 from ..core.bitmask import mask_or
+from ..core.bits import flush_float_keys
 from ..core.column import Column
 from ..core.errors import GDFStatus, require
 from ..core.table import Table
@@ -47,7 +48,7 @@ def _join_keys(table: Table, names: Sequence[str]):
         data = col.data
         if data.is_floating_point():
             no_match = mask_or(no_match, torch.isnan(data))
-            data = torch.where(data == 0, torch.zeros_like(data), data)
+            data = flush_float_keys(data)
         keys.append(radix_encode(data, ascending=True))
         widths.append(data.element_size() * 8)
         if col.valid is not None:

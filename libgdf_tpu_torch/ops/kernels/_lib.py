@@ -37,8 +37,10 @@ _I64 = ctypes.c_int64
 # c_void_p: without argtypes ctypes would pass them as 32-bit ints.
 _SIGNATURES = {
     "gdf_cuda_error_string": (ctypes.c_char_p, [_I]),
-    "gdf_scan_tile_elems": (_I, []),
-    "gdf_scan": (_I, [_I, _I, _P, _P, _P, _I64, _P, _P, _P]),
+    "gdf_scan_scratch_bytes": (_I64, [_I, _I64]),
+    "gdf_scan": (_I, [_I, _I, _I, _P, _P, _I64, _P, _I64, _P]),
+    "gdf_seg_scan_tile_elems": (_I, []),
+    "gdf_seg_scan": (_I, [_I, _I, _P, _P, _P, _I64, _P, _P, _P]),
     "gdf_compact_tile_elems": (_I, []),
     "gdf_compact_max_arrays": (_I, []),
     "gdf_compact_offsets": (_I, [_P, _I64, _P, _P, _P]),

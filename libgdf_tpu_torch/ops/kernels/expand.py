@@ -7,7 +7,8 @@ runs the plain version; on CUDA tensors it launches the kernel or raises.
     out_w[j] = w[max{i : pos[i] <= j}]   (0 where no pos[i] <= j), j < cap
 
 `pos` is int32 and strictly increasing over the live sources, with a tail
-of values >= cap (SENTINEL); words are int32 or int64 of pos's length.
+of values >= cap (SENTINEL); words are int32 or int64 of pos's length. The
+kernel is a tiled fill: one search per run of 4096 slots, not per slot.
 """
 from __future__ import annotations
 

@@ -5,7 +5,9 @@ replaces), each beside its plain PyTorch version. On a CPU tensor the
 wrapper runs the plain version; on a CUDA tensor it launches the kernel or
 raises.
 
-  scan(kind, x, reverse)      kind in {sum, max, min}
+  scan(kind, x, reverse)      kind in {sum, max, min}: one pass with
+                              decoupled look-back; `reverse` scans suffixes
+                              inside the kernel.
   seg_scan(kind, flags, vals) kind in {sum, max, min, carry}: restarts at
                               flagged heads; `carry` fills forward the last
                               flagged value, and positions before any flag
@@ -65,42 +67,37 @@ def seg_scan_plain(kind: str, flags: torch.Tensor, vals: torch.Tensor):
     return v.clone() if v is vals else v
 
 
-def _launch(what: str, kind: str, flags, vals: torch.Tensor):
+def _prepare(what: str, vals: torch.Tensor, *more):
+    """Check a launch's tensors; returns (device, output like vals)."""
     if vals.dtype not in _DTYPES:
         raise TypeError(f"{what}: unsupported dtype {vals.dtype}")
-    dev = _lib.require_cuda(what, vals, *(() if flags is None else (flags,)))
-    n = vals.shape[0]
-    out = torch.empty_like(vals)
-    if n == 0:
-        return out
-    lib = _lib.lib()
-    ntiles = -(-n // lib.gdf_scan_tile_elems())
-    tile_f = torch.empty(ntiles, dtype=torch.int32, device=dev)
-    tile_v = torch.empty(ntiles, dtype=vals.dtype, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.gdf_scan(_DTYPES[vals.dtype], _KINDS[kind],
-                           None if flags is None else flags.data_ptr(),
-                           vals.data_ptr(), out.data_ptr(), n,
-                           tile_f.data_ptr(), tile_v.data_ptr(),
-                           _lib.stream_ptr(dev))
-    _lib.check(err, what)
-    return out
+    return _lib.require_cuda(what, vals, *more), torch.empty_like(vals)
 
 
 def scan(kind: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """Inclusive scan (sum/max/min) of a 1-D tensor; `reverse` scans
-    suffixes (the kernel runs on the flipped tensor)."""
+    suffixes."""
     if kind not in ("sum", "max", "min"):
         raise ValueError(f"scan: unknown kind {kind!r}")
     if x.dim() != 1:
         raise ValueError("scan: 1-D tensors only")
     if x.device.type == "cpu":
         return scan_plain(kind, x, reverse)
-    if reverse:
-        return torch.flip(scan(kind, torch.flip(x, [0])), [0])
-    out = _launch("scan", kind, None, x)
-    if x.shape[0]:
-        _count(scan, x.dtype)
+    dev, out = _prepare("scan", x)
+    n = x.shape[0]
+    if n == 0:
+        return out
+    lib = _lib.lib()
+    dt = _DTYPES[x.dtype]
+    # The tile counter and the tiles' descriptors, zeroed by gdf_scan.
+    scratch = torch.empty(lib.gdf_scan_scratch_bytes(dt, n),
+                          dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.gdf_scan(dt, _KINDS[kind], int(reverse), x.data_ptr(),
+                           out.data_ptr(), n, scratch.data_ptr(),
+                           scratch.shape[0], _lib.stream_ptr(dev))
+    _lib.check(err, "scan")
+    _count(scan, x.dtype)
     return out
 
 
@@ -125,9 +122,21 @@ def seg_scan(kind: str, flags: torch.Tensor, vals: torch.Tensor):
         return seg_scan_plain(kind, flags, vals)
     if flags.dtype != torch.bool:
         flags = flags != 0
-    out = _launch("seg_scan", kind, flags, vals)
-    if vals.shape[0]:
-        _count(seg_scan, vals.dtype)
+    dev, out = _prepare("seg_scan", vals, flags)
+    n = vals.shape[0]
+    if n == 0:
+        return out
+    lib = _lib.lib()
+    ntiles = -(-n // lib.gdf_seg_scan_tile_elems())
+    tile_f = torch.empty(ntiles, dtype=torch.int32, device=dev)
+    tile_v = torch.empty(ntiles, dtype=vals.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.gdf_seg_scan(_DTYPES[vals.dtype], _KINDS[kind],
+                               flags.data_ptr(), vals.data_ptr(),
+                               out.data_ptr(), n, tile_f.data_ptr(),
+                               tile_v.data_ptr(), _lib.stream_ptr(dev))
+    _lib.check(err, "seg_scan")
+    _count(seg_scan, vals.dtype)
     return out
 
 

@@ -18,7 +18,11 @@ from libgdf_tpu_torch.ops import kernels
 
 pytestmark = pytest.mark.cuda
 
-SIZES = [1, 2047, 2048, 2049, 100_003, 3_000_000]
+# The edges of H1's and H3's 2048-element tiles, of H2's 32 KB tiles (8192
+# 4-byte or 4096 8-byte elements) and of H4's 4096-slot runs, and many
+# tiles plus one.
+SIZES = [1, 2047, 2048, 2049, 4095, 4096, 4097, 8191, 8192, 8193, 100_003,
+         37 * 8192 + 1, 3_000_000]
 DTYPES = [torch.int32, torch.int64, torch.float32, torch.float64]
 
 
@@ -81,6 +85,39 @@ def test_seg_scan(dev, n, dtype, kind, density):
         torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_scan_unaligned_view(dev, dtype, reverse):
+    """A view that starts one element in takes the kernel's unaligned
+    path."""
+    x = _values(np.random.default_rng(9), 50_001, dtype, dev)[1:]
+    for kind in ("sum", "max"):
+        got = kernels.scan(kind, x, reverse=reverse)
+        want = kernels.scan_plain(kind, x, reverse=reverse)
+        if reverse:   # the running-sum bound in scan order
+            _assert_scan_close(got.flip(0), want.flip(0), x.flip(0), kind)
+        else:
+            _assert_scan_close(got, want, x, kind)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_scan_look_back_is_exact_and_deterministic(dev, dtype):
+    """All ones give out[i] == i + 1 exactly, forward and reverse; 50 int64
+    sums of one input are bit-identical. A look-back that read a
+    descriptor before it was published would break either."""
+    n = 10_000_000
+    ones = torch.ones(n, dtype=dtype, device=dev)
+    want = torch.arange(1, n + 1, dtype=dtype, device=dev)
+    assert torch.equal(kernels.scan("sum", ones), want)
+    assert torch.equal(kernels.scan("sum", ones, reverse=True),
+                       want.flip(0))
+    x = _values(np.random.default_rng(4), n, dtype, dev) * 123_457
+    first = kernels.scan("sum", x)
+    assert torch.equal(first, kernels.scan_plain("sum", x))
+    for _ in range(50):
+        assert torch.equal(kernels.scan("sum", x), first)
+
+
 def test_scan_nan_propagates(dev):
     x = torch.tensor([1.0, float("nan"), 0.5, 3.0], device=dev)
     torch.testing.assert_close(kernels.scan("max", x),
@@ -128,14 +165,8 @@ def test_compact_many_arrays(dev):
         torch.testing.assert_close(g[:c], w[:c], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("cap,density", [
-    (1, 1.0), (2048, 0.5), (100_003, 0.1), (3_000_000, 0.9),
-    (40_000_000, 0.25)])
-def test_expand_fill(dev, cap, density):
-    rng = np.random.default_rng(cap)
-    nsrc = max(1, int(cap * density))
-    pos = np.sort(rng.choice(cap, nsrc, replace=False)).astype(np.int32)
-    pos = np.concatenate([pos, np.full(5, kernels.SENTINEL, np.int32)])
+def _expand_case(dev, rng, cap, pos):
+    pos = np.concatenate([pos, np.full(5, kernels.SENTINEL)]).astype(np.int32)
     words = [torch.as_tensor(rng.integers(-2**30, 2**30, pos.size)
                              .astype(np.int32), device=dev),
              torch.as_tensor(rng.integers(-2**62, 2**62, pos.size),
@@ -145,6 +176,28 @@ def test_expand_fill(dev, cap, density):
     want = kernels.expand_fill_plain(pos_t, words, cap)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("cap,density", [
+    (1, 1.0), (2048, 0.5), (4095, 0.3), (4096, 1.0), (4097, 0.5),
+    (37 * 4096 + 1, 0.2), (100_003, 0.1), (3_000_000, 0.9),
+    (40_000_000, 0.25)])
+def test_expand_fill(dev, cap, density):
+    rng = np.random.default_rng(cap)
+    nsrc = max(1, int(cap * density))
+    _expand_case(dev, rng, cap,
+                 np.sort(rng.choice(cap, nsrc, replace=False)))
+
+
+@pytest.mark.parametrize("cap,first,gap", [
+    (100_003, 0, 5_000), (100_003, 9_000, 4_096), (1_000_000, 70_001, 9_999),
+    (50_000, 40_000, 3)])
+def test_expand_fill_sparse(dev, cap, first, gap):
+    """Gaps between sources longer than one 4096-slot run (runs that no
+    source starts in), and a first source after slot 0."""
+    rng = np.random.default_rng(cap + first)
+    pos = first + np.cumsum(rng.integers(1, 2 * gap, cap // gap + 1))
+    _expand_case(dev, rng, cap, pos[pos < cap])
 
 
 def test_expand_fill_no_sources(dev):
