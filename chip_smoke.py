@@ -12,15 +12,21 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    at ragged and edge sizes, and times the kernel, its plain version and,
    where one PyTorch call computes the same function, that call, with CUDA
    events, the kernel's own device time per call from torch.profiler (and
-   torch.cumsum's, beside H2's) and the wrapper's host time to enqueue a
-   call.
+   that of the library call, beside H1's and H2's), the kernel launches of
+   this package per call (exactly one each) and the wrapper's host time to
+   enqueue a call.
    H2 is also timed at int64 and float64 over 10M elements (its instances
    that replace the TPU's K4a and K5a), and H3 at 10M for an int64 sum
-   (K4b), a float64 sum (K5b) and an int64 max over encodings (K6). H2's
-   look-back is checked for races: 10M ones scan to exactly 1..n (int32
-   and int64, forward and reverse), and 50 int64 sums of one input are
-   bit-identical. Each kernel's bound is the bytes it must move (inputs
-   read once, outputs written once) over the H100's 3.35 TB/s.
+   (K4b), a float64 sum (K5b) and an int64 max over encodings (K6). The
+   look-backs of H1, H2 and H3 are checked for races: H2's 10M ones scan
+   to exactly 1..n (int32 and int64, forward and reverse); H3's 10M ones
+   with no flag sum to exactly 1..n and with a flag every 100,003 rows to
+   the restarting ramp (int32 and int64), and all-flags `carry` returns its
+   input; H1 keeps all of a 10M arange payload, every other row, or none
+   with the exact count; and 50 repeats of one int64 sum, one int64
+   segmented sum and one compaction are bit-identical. Each kernel's bound
+   is the bytes it must move (inputs read once, outputs written once) over
+   the H100's 3.35 TB/s.
 4. Drives the main path at full size: a 10M-row fact table against a
    1M-row dimension, filter -> inner join -> groupby -> order_by, then a
    10M x 1M inner join whose build side repeats each key 4 times.
@@ -76,10 +82,11 @@ SOURCES = {
                     "libgdf_tpu/ops/pallas/expand.py:210"),
 }
 REL = {torch.float32: 2e-4, torch.float64: 1e-12}
-# the edges of H1's and H3's 2048-element tiles, H2's 32 KB tiles (8192
-# 4-byte or 4096 8-byte elements) and H4's 4096-slot runs
+# the edges of H2's and H3's 32 KB tiles (8192 4-byte or 4096 8-byte
+# elements), H1's 4096-row tiles and H4's 4096-slot runs, and many tiles
+# plus one
 EDGE_SIZES = (1, 2047, 2048, 2049, 4095, 4096, 4097, 8191, 8192, 8193,
-              37 * 8192 + 1, 100_003)
+              37 * 4096 + 1, 37 * 8192 + 1, 100_003)
 N_FACT, N_DIM, MULT = 10_000_000, 1_000_000, 4
 AGGS = [("v", "sum", "s"), ("v", "count", "c"), ("v", "avg", "a"),
         ("w", "max", "hi")]
@@ -95,9 +102,10 @@ WINDOWS = (("window_min_rows", "min", 10_000, ("p",), "rows"),
            ("window_max_range", "max", N_W // 4, ("p",), "range"))
 ANALYTIC_KERNELS = ("scan[int64]", "scan[float64]", "seg_scan[int32]")
 # __global__ functions of libgdf_tpu_torch/csrc/*.cu, by wrapper
-KERNEL_NAMES = {"compact": ("count_tiles", "scan_counts", "scatter_tiles"),
+# (H2 and H3 are instances of one template)
+KERNEL_NAMES = {"compact": ("compact_lookback",),
                 "scan": ("scan_lookback",),
-                "seg_scan": ("tile_reduce", "tile_prefix", "tile_scan"),
+                "seg_scan": ("scan_lookback",),
                 "expand_fill": ("expand_fill_runs",)}
 OWN_KERNELS = tuple(k for names in KERNEL_NAMES.values() for k in names)
 
@@ -174,11 +182,13 @@ def _device_us(event):
     return float(event.self_cuda_time_total if us is None else us)
 
 
-def profiled_ms(fn, names, reps=5):
-    """Device milliseconds per call of fn() in the kernels whose names
-    contain one of `names`, from torch.profiler over reps calls after a
-    warm-up; None if three profiles in a row saw no such kernel (a
-    profile now and then comes back without device events)."""
+def profiled(fn, names, reps=5):
+    """(device milliseconds, launches) per call of fn() in the kernels
+    whose names contain one of `names`, and {activity: count per call} of
+    every device activity (kernels and memsets), from torch.profiler over
+    reps calls after a warm-up; (None, None, {}) if three profiles in a row
+    saw no such kernel (a profile now and then comes back without device
+    events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -188,12 +198,28 @@ def profiled_ms(fn, names, reps=5):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(_device_us(e) for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
-                 and any(n in e.key for n in names))
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        mine = [e for e in dev if any(n in e.key for n in names)]
+        us = sum(_device_us(e) for e in mine)
         if us:
-            return us / reps / 1e3
-    return None
+            return (us / reps / 1e3, sum(e.count for e in mine) / reps,
+                    {e.key[:60]: e.count / reps for e in dev})
+    return None, None, {}
+
+
+def profiled_ms(fn, names, reps=5):
+    """Device milliseconds per call of fn() in the kernels named."""
+    return profiled(fn, names, reps)[0]
+
+
+def one_launch_ms(fn, name):
+    """profiled() of one wrapper: fails unless each call launched exactly
+    one kernel of this package. Returns (device ms, activities per call)."""
+    ms, launches, acts = profiled(fn, KERNEL_NAMES[name])
+    if launches is not None and launches != 1:
+        fail(f"{name}: {launches} kernel launches per call ({acts})")
+    return ms, acts
 
 
 def host_ms(fn, reps=20):
@@ -266,20 +292,49 @@ def phase_compact(rng, dev):
             fail(f"compact {name}: count {int(cnt)} vs {c}")
         for i, (g, w) in enumerate(zip(got, want)):
             exact(g[:c], w[:c], f"compact {name} array {i}")
+    check_compact_look_back(arrays, keep, dev)
     ms = cuda_ms(lambda: kernels.compact(arrays, keep))
-    dev_ms = profiled_ms(lambda: kernels.compact(arrays, keep),
-                         KERNEL_NAMES["compact"])
+    dev_ms, acts = one_launch_ms(lambda: kernels.compact(arrays, keep),
+                                 "compact")
+    print(f"compact: device activities per call {acts}", flush=True)
     host = host_ms(lambda: kernels.compact(arrays, keep))
     plain = cuda_ms(lambda: kernels.compact_plain(arrays, keep))
     library = cuda_ms(lambda: [a[keep] for a in arrays])
+    # every kernel of the library call (the mask's nonzero, the gathers)
+    library_dev = profiled_ms(lambda: [a[keep] for a in arrays], ("",))
     kept = int(keep.sum())
     moved = nbytes(keep, *arrays) + kept * sum(a.element_size()
                                                for a in arrays)
     return dict(max_abs_err=0.0, ms=ms, profiler_ms=dev_ms, host_ms=host,
-                plain_ms=plain, library_ms=library, bound_ms=bound_ms(moved),
+                plain_ms=plain, library_ms=library,
+                library_profiler_ms=library_dev, bound_ms=bound_ms(moved),
                 bound_by="bytes",
                 shape="10M rows, int64+bool+float32+bool, 45% kept; "
                       "library: a[keep] per array")
+
+
+def check_compact_look_back(arrays, keep, dev):
+    """H1's look-back against races: over 10M rows all kept gives an arange
+    payload and count n, every other row arange[::2], none kept count 0;
+    50 compactions of the main shape are bit-identical to the first."""
+    idx = torch.arange(N_FACT, dtype=torch.int64, device=dev)
+    for what, kp, want in (("all", idx >= 0, idx),
+                           ("every other", idx % 2 == 0, idx[::2]),
+                           ("none", idx < 0, idx[:0])):
+        (got,), cnt = kernels.compact([idx], kp)
+        if int(cnt) != want.shape[0]:
+            fail(f"compact {what}: count {int(cnt)} vs {want.shape[0]}")
+        exact(got[:want.shape[0]], want, f"compact {what}")
+    first, cnt = kernels.compact(arrays, keep)
+    c = int(cnt)
+    for i in range(50):
+        again, cnt = kernels.compact(arrays, keep)
+        if int(cnt) != c:
+            fail(f"compact repeat {i}: count {int(cnt)} vs {c}")
+        for j, (g, w) in enumerate(zip(again, first)):
+            exact(g[:c], w[:c], f"compact repeat {i} array {j}")
+    print("compact look-back: all / every other / none exact, 50 "
+          "compactions bit-identical", flush=True)
 
 
 def phase_scan(rng, dev):
@@ -309,8 +364,8 @@ def phase_scan(rng, dev):
         x = _values(rng, m, dtype, dev)
         timed[str(dtype).removeprefix("torch.")] = dict(
             ms=cuda_ms(lambda: kernels.scan("sum", x)),
-            profiler_ms=profiled_ms(lambda: kernels.scan("sum", x),
-                                    KERNEL_NAMES["scan"]),
+            profiler_ms=one_launch_ms(lambda: kernels.scan("sum", x),
+                                      "scan")[0],
             host_ms=host_ms(lambda: kernels.scan("sum", x)),
             plain_ms=cuda_ms(lambda: kernels.scan_plain("sum", x)),
             library_ms=cuda_ms(lambda: torch.cumsum(x, 0, dtype=x.dtype)),
@@ -365,6 +420,7 @@ def phase_seg_scan(rng, dev):
                         got, want, bound, REL[dtype], what))
                 else:
                     exact(got, want, what)
+    check_seg_look_back(rng, dev)
     timed = {}
     for name, kind, dtype, m in (
             ("K3 float32 sum", "sum", torch.float32, n),
@@ -377,8 +433,8 @@ def phase_seg_scan(rng, dev):
         f = torch.as_tensor(rng.random(m) < 0.25, device=dev)
         timed[name] = dict(
             ms=cuda_ms(lambda: kernels.seg_scan(kind, f, x)),
-            profiler_ms=profiled_ms(lambda: kernels.seg_scan(kind, f, x),
-                                    KERNEL_NAMES["seg_scan"]),
+            profiler_ms=one_launch_ms(lambda: kernels.seg_scan(kind, f, x),
+                                      "seg_scan")[0],
             host_ms=host_ms(lambda: kernels.seg_scan(kind, f, x)),
             plain_ms=cuda_ms(lambda: kernels.seg_scan_plain(kind, f, x)),
             library_ms=None, bound_ms=bound_ms(nbytes(f) + 2 * nbytes(x)),
@@ -389,6 +445,39 @@ def phase_seg_scan(rng, dev):
     return dict(max_abs_err=err, by_instance={k: timed[k] for k in
                                               list(timed)[1:]},
                 **timed["K3 float32 sum"])
+
+
+def check_seg_look_back(rng, dev):
+    """H3's look-back against races: 10M ones with no flag (the longest
+    look-back) sum to exactly 1..n and with a flag every 100,003 rows to
+    the restarting ramp, at int32 and int64; 50 int64 segmented sums of one
+    input are bit-identical to the first and to the plain version;
+    all-flags `carry` returns its input."""
+    every = 100_003
+    idx = torch.arange(N_W, dtype=torch.int64, device=dev)
+    none = torch.zeros(N_W, dtype=torch.bool, device=dev)
+    for dtype in (torch.int32, torch.int64):
+        ones = torch.ones(N_W, dtype=dtype, device=dev)
+        exact(kernels.seg_scan("sum", none, ones), (idx + 1).to(dtype),
+              f"seg_scan of ones {dtype}")
+        exact(kernels.seg_scan("sum", idx % every == 0, ones),
+              (idx % every + 1).to(dtype), f"seg_scan ramp {dtype}")
+    x = _values(rng, N_W, torch.int64, dev) * 123_457
+    f = torch.as_tensor(rng.random(N_W) < 0.25, device=dev)
+    first = kernels.seg_scan("sum", f, x)
+    exact(first, kernels.seg_scan_plain("sum", f, x), "int64 seg sum")
+    for i in range(50):
+        exact(kernels.seg_scan("sum", f, x), first,
+              f"int64 seg sum, repeat {i}")
+    for dtype in (torch.int64, torch.float32):
+        v = _values(rng, N_W, dtype, dev)
+        exact(kernels.seg_scan("carry", ~none, v), v,
+              f"all-flags carry {dtype}")
+    _, acts = one_launch_ms(lambda: kernels.seg_scan("sum", f, x),
+                            "seg_scan")
+    print(f"seg_scan look-back: ones and ramps exact, 50 int64 segmented "
+          f"sums bit-identical, all-flags carry exact; device activities "
+          f"per call {acts}", flush=True)
 
 
 def phase_expand(rng, dev):
@@ -417,8 +506,8 @@ def phase_expand(rng, dev):
     cap, pos, words = cases[0]
     words = words[:3]
     ms = cuda_ms(lambda: kernels.expand_fill(pos, words, cap))
-    dev_ms = profiled_ms(lambda: kernels.expand_fill(pos, words, cap),
-                         KERNEL_NAMES["expand_fill"])
+    dev_ms = one_launch_ms(lambda: kernels.expand_fill(pos, words, cap),
+                           "expand_fill")[0]
     host = host_ms(lambda: kernels.expand_fill(pos, words, cap))
     plain = cuda_ms(lambda: kernels.expand_fill_plain(pos, words, cap))
     moved = nbytes(pos, *words) + cap * sum(w.element_size() for w in words)

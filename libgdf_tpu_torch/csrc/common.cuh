@@ -10,8 +10,6 @@ namespace gdf {
 
 constexpr int kThreads = 256;           // threads per block
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 8;               // elements per thread per tile
-constexpr int kTile = kThreads * kItems;
 
 // Exclusive sum over the block of one int per thread. `warp_tot` is
 // kWarps ints of shared memory; `*total` receives the block total. Every
@@ -42,6 +40,14 @@ __device__ __forceinline__ int block_exclusive_sum(int x, int* warp_tot,
   *total = warp_tot[kWarps - 1];
   __syncthreads();  // warp_tot is reused by the caller's next call
   return pre + inc - x;
+}
+
+// Bit e of the result: byte e of w is not 0.
+__device__ __forceinline__ unsigned nonzero_bytes(unsigned w) {
+  unsigned m = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) m |= ((w >> (8 * e)) & 0xffu) ? 1u << e : 0u;
+  return m;
 }
 
 }  // namespace gdf

@@ -1,8 +1,9 @@
 """Build and load the Hopper kernels: nvcc -> shared library -> ctypes.
 
 The CUDA sources in `libgdf_tpu_torch/csrc/` have a plain C interface (no
-PyTorch headers), so `nvcc` builds them in seconds. The library is built
-at the first kernel launch, keyed by a hash of the sources and flags, into
+PyTorch headers), so `nvcc` builds them in seconds: one compiler process
+per source, all started together, then one link. The library is built at
+the first kernel launch, keyed by a hash of the sources and flags, into
 `build/kernels/` at the root of the checkout, and loaded once per process.
 Nothing here runs at import time, so the package imports on a machine
 without CUDA.
@@ -25,7 +26,7 @@ from ...core.errors import GDFError, GDFStatus
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
@@ -39,12 +40,11 @@ _SIGNATURES = {
     "gdf_cuda_error_string": (ctypes.c_char_p, [_I]),
     "gdf_scan_scratch_bytes": (_I64, [_I, _I64]),
     "gdf_scan": (_I, [_I, _I, _I, _P, _P, _I64, _P, _I64, _P]),
-    "gdf_seg_scan_tile_elems": (_I, []),
-    "gdf_seg_scan": (_I, [_I, _I, _P, _P, _P, _I64, _P, _P, _P]),
-    "gdf_compact_tile_elems": (_I, []),
+    "gdf_seg_scan_scratch_bytes": (_I64, [_I, _I64]),
+    "gdf_seg_scan": (_I, [_I, _I, _P, _P, _P, _I64, _P, _I64, _P]),
     "gdf_compact_max_arrays": (_I, []),
-    "gdf_compact_offsets": (_I, [_P, _I64, _P, _P, _P]),
-    "gdf_compact_scatter": (_I, [_P, _I64, _P, _I, _PP, _PP, _PI, _P]),
+    "gdf_compact_scratch_bytes": (_I64, [_I64]),
+    "gdf_compact": (_I, [_P, _I64, _I, _PP, _PP, _PI, _P, _P, _I64, _P]),
     "gdf_expand_max_words": (_I, []),
     "gdf_expand_fill": (_I, [_P, _I64, _I64, _I, _PP, _PP, _PI, _P]),
 }
@@ -84,19 +84,28 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cus = [str(p) for p in sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        jobs = []
+        for src in sources():
+            if src.suffix == ".cu":
+                obj = os.path.join(tmp, src.stem + ".o")
+                jobs.append((obj, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+        logs = [(p.communicate()[0], p.returncode) for _, p in jobs]
+        if any(rc != 0 for _, rc in logs):
+            raise GDFError(GDFStatus.GDF_CUDA_ERROR,
+                           "nvcc failed:\n" + "".join(log for log, _ in logs))
+        so = os.path.join(tmp, out.name)
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", so,
+                              *[obj for obj, _ in jobs]],
+                             capture_output=True, text=True)
         if res.returncode != 0:
             raise GDFError(GDFStatus.GDF_CUDA_ERROR,
                            "nvcc failed:\n" + res.stdout + res.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(so, out)
     return out
 
 

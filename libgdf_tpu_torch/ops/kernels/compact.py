@@ -1,8 +1,10 @@
 """H1 `compact`: stable stream compaction of several arrays by one mask.
 
 Wrapper around `csrc/compact.cu` (which names the Pallas kernels it
-replaces), beside its plain PyTorch version. On CPU tensors the wrapper
-runs the plain version; on CUDA tensors it launches the kernel or raises.
+replaces), beside its plain PyTorch version: one memset of the scratch and
+one launch for each group of up to `gdf_compact_max_arrays()` arrays. On
+CPU tensors the wrapper runs the plain version; on CUDA tensors it
+launches the kernel or raises.
 
 Contract (the capacity + count convention of core/table.py): each output
 has the input's length, the kept rows come first in their original order,
@@ -43,27 +45,26 @@ def compact(arrays, keep: torch.Tensor):
     if n >= 2 ** 31:
         raise GDFError(GDFStatus.GDF_COLUMN_SIZE_TOO_BIG,
                        "compact: more than 2^31 - 1 rows")
-    count = torch.zeros((), dtype=torch.int32, device=dev)
     outs = [torch.empty_like(a) for a in arrays]
     if n == 0:
-        return outs, count
+        return outs, torch.zeros((), dtype=torch.int32, device=dev)
     lib = _lib.lib()
-    ntiles = -(-n // lib.gdf_compact_tile_elems())
-    offsets = torch.empty(ntiles, dtype=torch.int32, device=dev)
+    # the kernel always writes the count; the tile counter and descriptors
+    # in the scratch are zeroed by gdf_compact
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.gdf_compact_scratch_bytes(n), dtype=torch.uint8,
+                          device=dev)
     per_launch = lib.gdf_compact_max_arrays()
     with torch.cuda.device(dev):
         stream = _lib.stream_ptr(dev)
-        _lib.check(lib.gdf_compact_offsets(keep.data_ptr(), n,
-                                           offsets.data_ptr(),
-                                           count.data_ptr(), stream),
-                   "compact offsets")
-        for i in range(0, len(arrays), per_launch):
+        for i in range(0, max(len(arrays), 1), per_launch):
             ins, chunk = arrays[i:i + per_launch], outs[i:i + per_launch]
-            _lib.check(lib.gdf_compact_scatter(
-                keep.data_ptr(), n, offsets.data_ptr(), len(ins),
-                _lib.pointer_array(ins), _lib.pointer_array(chunk),
-                _lib.int_array([a.element_size() for a in ins]), stream),
-                "compact scatter")
+            _lib.check(lib.gdf_compact(
+                keep.data_ptr(), n, len(ins), _lib.pointer_array(ins),
+                _lib.pointer_array(chunk),
+                _lib.int_array([a.element_size() for a in ins]),
+                count.data_ptr(), scratch.data_ptr(), scratch.shape[0],
+                stream), "compact")
     compact.launches += 1
     return outs, count
 

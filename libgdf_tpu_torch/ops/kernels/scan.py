@@ -5,13 +5,15 @@ replaces), each beside its plain PyTorch version. On a CPU tensor the
 wrapper runs the plain version; on a CUDA tensor it launches the kernel or
 raises.
 
-  scan(kind, x, reverse)      kind in {sum, max, min}: one pass with
-                              decoupled look-back; `reverse` scans suffixes
-                              inside the kernel.
+  scan(kind, x, reverse)      kind in {sum, max, min}; `reverse` scans
+                              suffixes inside the kernel.
   seg_scan(kind, flags, vals) kind in {sum, max, min, carry}: restarts at
                               flagged heads; `carry` fills forward the last
                               flagged value, and positions before any flag
                               keep their own value.
+
+Both are one pass with decoupled look-back: one memset of a scratch buffer
+(the tile counter and descriptors) and one launch.
 
 Value dtypes: int32, int64, float32, float64. Integer sums wrap; float
 max/min propagate NaN. Each wrapper counts its launches in total
@@ -127,14 +129,15 @@ def seg_scan(kind: str, flags: torch.Tensor, vals: torch.Tensor):
     if n == 0:
         return out
     lib = _lib.lib()
-    ntiles = -(-n // lib.gdf_seg_scan_tile_elems())
-    tile_f = torch.empty(ntiles, dtype=torch.int32, device=dev)
-    tile_v = torch.empty(ntiles, dtype=vals.dtype, device=dev)
+    dt = _DTYPES[vals.dtype]
+    # The tile counter and the tiles' descriptors, zeroed by gdf_seg_scan.
+    scratch = torch.empty(lib.gdf_seg_scan_scratch_bytes(dt, n),
+                          dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
-        err = lib.gdf_seg_scan(_DTYPES[vals.dtype], _KINDS[kind],
-                               flags.data_ptr(), vals.data_ptr(),
-                               out.data_ptr(), n, tile_f.data_ptr(),
-                               tile_v.data_ptr(), _lib.stream_ptr(dev))
+        err = lib.gdf_seg_scan(dt, _KINDS[kind], flags.data_ptr(),
+                               vals.data_ptr(), out.data_ptr(), n,
+                               scratch.data_ptr(), scratch.shape[0],
+                               _lib.stream_ptr(dev))
     _lib.check(err, "seg_scan")
     _count(seg_scan, vals.dtype)
     return out

@@ -18,11 +18,11 @@ from libgdf_tpu_torch.ops import kernels
 
 pytestmark = pytest.mark.cuda
 
-# The edges of H1's and H3's 2048-element tiles, of H2's 32 KB tiles (8192
-# 4-byte or 4096 8-byte elements) and of H4's 4096-slot runs, and many
+# The edges of H2's and H3's 32 KB tiles (8192 4-byte or 4096 8-byte
+# elements), of H1's 4096-row tiles and of H4's 4096-slot runs, and many
 # tiles plus one.
 SIZES = [1, 2047, 2048, 2049, 4095, 4096, 4097, 8191, 8192, 8193, 100_003,
-         37 * 8192 + 1, 3_000_000]
+         37 * 4096 + 1, 37 * 8192 + 1, 3_000_000]
 DTYPES = [torch.int32, torch.int64, torch.float32, torch.float64]
 
 
@@ -118,6 +118,45 @@ def test_scan_look_back_is_exact_and_deterministic(dev, dtype):
         assert torch.equal(kernels.scan("sum", x), first)
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_seg_scan_look_back_is_exact_and_deterministic(dev, dtype):
+    """10M ones with no flag (the longest look-back) sum to exactly 1..n;
+    with a flag every 100,003 rows they restart at each; 50 int64
+    segmented sums of one input are bit-identical; all-flags `carry`
+    returns its input."""
+    n, every = 10_000_000, 100_003
+    ones = torch.ones(n, dtype=dtype, device=dev)
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    none = torch.zeros(n, dtype=torch.bool, device=dev)
+    assert torch.equal(kernels.seg_scan("sum", none, ones),
+                       (idx + 1).to(dtype))
+    assert torch.equal(kernels.seg_scan("sum", idx % every == 0, ones),
+                       (idx % every + 1).to(dtype))
+    rng = np.random.default_rng(8)
+    x = _values(rng, n, dtype, dev) * 123_457
+    f = torch.as_tensor(rng.random(n) < 0.25, device=dev)
+    first = kernels.seg_scan("sum", f, x)
+    assert torch.equal(first, kernels.seg_scan_plain("sum", f, x))
+    for _ in range(50):
+        assert torch.equal(kernels.seg_scan("sum", f, x), first)
+    assert torch.equal(kernels.seg_scan("carry", ~none, x), x)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_seg_scan_unaligned_views(dev, dtype):
+    """Flags or values that start one element in take the scalar path."""
+    rng = np.random.default_rng(10)
+    n = 50_001
+    x = _values(rng, n, dtype, dev)
+    f = torch.as_tensor(rng.random(n) < 0.01, device=dev)
+    for flags, vals in ((f[1:], x[1:]), (f[1:], x[:-1].clone()),
+                        (f[:-1].clone(), x[1:])):
+        for kind in ("max", "carry"):
+            torch.testing.assert_close(
+                kernels.seg_scan(kind, flags, vals),
+                kernels.seg_scan_plain(kind, flags, vals), rtol=0, atol=0)
+
+
 def test_scan_nan_propagates(dev):
     x = torch.tensor([1.0, float("nan"), 0.5, 3.0], device=dev)
     torch.testing.assert_close(kernels.scan("max", x),
@@ -148,6 +187,48 @@ def test_compact(dev, n, p):
     assert int(cnt) == c
     for g, w in zip(got, want):
         torch.testing.assert_close(g[:c], w[:c], rtol=0, atol=0)
+
+
+def test_compact_look_back_is_exact_and_deterministic(dev):
+    """Over 10M rows: all kept gives the arange payload and count n; every
+    other row gives arange[::2]; none kept gives count 0; 50 compactions of
+    one input are bit-identical. A look-back that read a tile count before
+    it was published would break them."""
+    n = 10_000_000
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    for keep, want in ((idx >= 0, idx), (idx % 2 == 0, idx[::2]),
+                       (idx < 0, idx[:0])):
+        (got,), cnt = kernels.compact([idx], keep)
+        assert int(cnt) == want.shape[0]
+        assert torch.equal(got[:want.shape[0]], want)
+    rng = np.random.default_rng(6)
+    keep = torch.as_tensor(rng.random(n) < 0.45, device=dev)
+    arrays = [idx * 7, torch.as_tensor(rng.random(n) < 0.5, device=dev)]
+    first, c0 = kernels.compact(arrays, keep)
+    c = int(c0)
+    for _ in range(50):
+        again, cnt = kernels.compact(arrays, keep)
+        assert int(cnt) == c
+        for g, w in zip(again, first):
+            assert torch.equal(g[:c], w[:c])
+
+
+def test_compact_unaligned_views(dev):
+    """keep or the arrays one element in take the scalar paths."""
+    rng = np.random.default_rng(12)
+    n = 50_001
+    keep = torch.as_tensor(rng.random(n) < 0.3, device=dev)
+    a8 = torch.as_tensor(rng.integers(-2**62, 2**62, n), device=dev)
+    a1 = torch.as_tensor(rng.random(n) < 0.5, device=dev)
+    for kp, arrays in ((keep[1:], [a8[1:], a1[1:]]),
+                       (keep[1:], [a8[:-1].clone(), a1[:-1].clone()]),
+                       (keep[:-1].clone(), [a8[1:], a1[1:]])):
+        got, cnt = kernels.compact(arrays, kp)
+        want, wcnt = kernels.compact_plain(arrays, kp)
+        c = int(wcnt)
+        assert int(cnt) == c
+        for g, w in zip(got, want):
+            assert torch.equal(g[:c], w[:c])
 
 
 def test_compact_many_arrays(dev):

@@ -48,9 +48,17 @@ def t(x):
 
 @pytest.mark.parametrize("version,n,p", [
     ("v1", 0, 0.5), ("v1", 3 * B + 17, 0.4), ("v2", 0, 0.5),
-    ("v2", B, 0.0), ("v2", B, 1.0), ("v2", 3 * B + 17, 0.4)])
+    ("v2", B, 0.0), ("v2", B, 1.0), ("v2", 3 * B + 17, 0.4),
+    # all, none and one kept over many blocks and a ragged last one
+    ("v1", 3 * B + 17, 1.0), ("v1", 3 * B + 17, 0.0),
+    ("v1", 3 * B + 17, "one"), ("v2", 3 * B + 17, 1.0),
+    ("v2", 3 * B + 17, 0.0), ("v2", 3 * B + 17, "one")])
 def test_compact_plain_matches_pallas(tiny, rng, version, n, p):
-    keep = (rng.random(n) < p) if 0 < p < 1 else np.full(n, bool(p))
+    if p == "one":
+        keep = np.zeros(n, bool)
+        keep[2 * B + 5] = True
+    else:
+        keep = (rng.random(n) < p) if 0 < p < 1 else np.full(n, bool(p))
     arrays = [rng.integers(-2**31, 2**31, n).astype(np.int32),
               rng.standard_normal(n).astype(np.float32),
               rng.integers(-2**62, 2**62, n).astype(np.int64),
@@ -123,20 +131,25 @@ def test_seg_scan_plain_matches_pallas_pair(tiny, rng, n, density, dtype):
             np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("n", [0, 2 * B + 101])
-def test_seg_sum64_plain_matches_pallas(tiny, rng, n):
+# density 0: one segment over every block; 1: every row its own segment
+@pytest.mark.parametrize("n,density", [
+    pytest.param(0, 0.05, id="0"), pytest.param(2 * B + 101, 0.05, id="2149"),
+    (3 * B + 17, 0.0), (3 * B + 17, 1.0)])
+def test_seg_sum64_plain_matches_pallas(tiny, rng, n, density):
     x = rng.integers(-2**40, 2**40, n).astype(np.int64) * np.int64(2**20)
-    f = rng.random(n) < 0.05
+    f = rng.random(n) < density
     got = kernels.seg_scan_plain("sum", t(f), t(x)).numpy()
     want = np.asarray(ps.seg_sum64_pallas(jnp.asarray(f), jnp.asarray(x),
                                           interpret=True))
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("n", [0, 2 * B + 101])
-def test_seg_sum_f64_plain_matches_pallas(tiny, rng, n):
+@pytest.mark.parametrize("n,density", [
+    pytest.param(0, 0.05, id="0"), pytest.param(2 * B + 101, 0.05, id="2149"),
+    (3 * B + 17, 0.0), (3 * B + 17, 1.0)])
+def test_seg_sum_f64_plain_matches_pallas(tiny, rng, n, density):
     x = rng.standard_normal(n) * np.exp(rng.uniform(-20, 20, n))
-    f = rng.random(n) < 0.05
+    f = rng.random(n) < density
     got = kernels.seg_scan_plain("sum", t(f), t(x)).numpy()
     want = np.asarray(ps.seg_sum_f64_pallas(jnp.asarray(f), jnp.asarray(x),
                                             interpret=True))
