@@ -37,12 +37,34 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    a quarter of the order range), prefix sums of the int64 and float64
    columns, five reductions and six quantiles of the value. It then
    profiles the ROW sum and the RANGE max windows.
+6. Drives the ABI path at full size, calling only names of
+   libgdf_tpu_torch.compat.gdf (and CSVReadArg): rmmInitialize with its
+   log; read_csv of a 1M-row, 4-column file written from the seed (int64,
+   int32, float64 and a `str` column, ~3% empty fields), printing the
+   scanner that ran; on 10M-row columns built with gdf_column_view from
+   numpy: typed and generic binary ops (an integer floor-division with
+   zeros in the divisor), a float -> int32 cast over NaN and +-inf, sqrt,
+   the six datetime fields of a TIMESTAMP(ms) column, gdf_validity_and;
+   gpu_comparison_static_i64 -> gpu_apply_stencil, gdf_filter; inner and
+   left join 10M x 1M and the inner join against a build side repeating
+   each key 4 times; gdf_group_by_sum over an int64 and a float64 value,
+   _max over int64, _avg, _count (1M groups); gdf_order_by; plan-based
+   gdf_radixsort_i32 ascending, descending and over bits [8, 24), and
+   gdf_segmented_radixsort_i64 over 10,000 segments (a freed plan must
+   raise); gdf_prefixsum_i64, three reductions, gdf_quantile_exact,
+   gdf_hash, gpu_hash_columns, gdf_hash_partition into 64 partitions, a
+   ROW-sum gdf_window_function over 1,000 rows; gdf_to_csr over 4 float32
+   columns of 2.5M rows; rmmAlloc / rmmRealloc / rmmFree / rmmGetInfo,
+   whose log must hold one line per event and the card's total memory.
+   Every step sits in a gdf_nvtx_range_push / pop pair, and a pushed range
+   must show by name in a torch.profiler trace.
    For each path the kernels' launch counts are reset just before its run
    and read just after it; every kernel of the path must have launched (on
-   the analytic path: H2 at int64 and float64, H3 at int32). Each operator
-   is timed on the host clock ending in a device sync, and each result is
-   held to the same code run on CPU tensors.
-6. Prints a JSON line of the operators, one of the kernels, the card line,
+   the analytic path: H2 at int64 and float64, H3 at int32; on the ABI
+   path: H1, H2 at int32 and int64, H3 at int64 and float64, H4). Each
+   operator is timed on the host clock ending in a device sync, and each
+   result is held to the same code run on CPU tensors.
+7. Prints a JSON line of the operators, one of the kernels, the card line,
    and last {"ok": true, "device": {...}}.
 
 Tolerances: integers, counts, validity, quantiles, window minima and
@@ -54,18 +76,26 @@ in the window's sort order (their float64 prefix sums run over the whole
 sorted column); the float64 prefix sum within 1e-12 of the running sum of
 |x|; float32 reductions within 1e-5 of the sum of |v|, relative. Any failed
 check raises, so the exit code is non-zero and the last line is not
-printed.
+printed. On the ABI path: integers, counts, validity, row order, casts,
+datetime fields, hashes, sort outputs, CSR arrays and CSV columns exact;
+float32 products exact; sqrt rtol 1e-12; float64 group sums within 1e-12 of
+the group's sum of |x| (averages: of that over the group's count); the
+float64 reduction within 1e-12 of the sum of |x|; the window sums within
+2e-12 of the column's sum of |v|.
 """
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from libgdf_tpu_torch import Table, ops
+from libgdf_tpu_torch import Column, GDFError, Table, TimeUnit, ops
+from libgdf_tpu_torch.compat import gdf
+from libgdf_tpu_torch.io import CSVReadArg
 from libgdf_tpu_torch.ops import kernels
 from libgdf_tpu_torch.ops.sort import radix_encode
 
@@ -101,6 +131,9 @@ WINDOWS = (("window_min_rows", "min", 10_000, ("p",), "rows"),
            ("window_sum_range", "sum", N_W // 4, (), "range"),
            ("window_max_range", "max", N_W // 4, ("p",), "range"))
 ANALYTIC_KERNELS = ("scan[int64]", "scan[float64]", "seg_scan[int32]")
+ABI_KERNELS = ("compact", "scan[int32]", "scan[int64]", "seg_scan[int64]",
+               "seg_scan[float64]", "expand_fill")
+N_CSV, N_CSR, N_SEGMENTS, N_PARTS = 1_000_000, 2_500_000, 10_000, 64
 # __global__ functions of libgdf_tpu_torch/csrc/*.cu, by wrapper
 # (H2 and H3 are instances of one template)
 KERNEL_NAMES = {"compact": ("compact_lookback",),
@@ -691,6 +724,318 @@ def check_analytic_path(gpu, cpu, W_cpu):
     return err
 
 
+# -- the ABI path -----------------------------------------------------------
+
+def make_abi_data(csv_path, seed=0):
+    """The ABI path's inputs as numpy, and the CSV file written to
+    `csv_path`: {name: (values, null mask or None)} plus the file's own
+    columns under "csv"."""
+    rng = np.random.default_rng(seed)
+    n, nb, nd = N_FACT, N_DIM, N_DIM // MULT
+    f32 = rng.standard_normal(n).astype(np.float32)
+    f32[rng.integers(0, n, 1000)] = np.nan
+    f32[rng.integers(0, n, 1000)] = np.inf
+    f32[rng.integers(0, n, 1000)] = -np.inf
+    f32[rng.integers(0, n, 1000)] = 3e10
+    data = {
+        "key": (rng.integers(0, nb, n), rng.random(n) < 0.05),
+        "i32": (rng.integers(-1000, 1000, n).astype(np.int32), None),
+        "f32": (f32, None),
+        "f64": (rng.standard_normal(n) * 100, rng.random(n) < 0.10),
+        "ts": (rng.integers(-2_500_000_000_000, 4_700_000_000_000, n), None),
+        "q": (rng.integers(-2**40, 2**40, n), None),
+        "cat": (rng.integers(0, 100, n).astype(np.int32), None),
+        "flag": (rng.integers(0, 4, n).astype(np.int8), None),
+        "o": (rng.permutation(n).astype(np.int32), None),
+        "dkey": (rng.permutation(nb), None),
+        "dw": (rng.standard_normal(nb).astype(np.float32), None),
+        "pkey": (rng.integers(0, nd, n), rng.random(n) < 0.05),
+        "bkey": (np.repeat(rng.permutation(nd), MULT), None),
+    }
+    offsets = np.sort(rng.choice(np.arange(1, n), N_SEGMENTS - 1,
+                                 replace=False))
+    data["offsets"] = np.concatenate([[0], offsets]).astype(np.int32)
+    for j in range(4):
+        data[f"m{j}"] = (rng.standard_normal(N_CSR).astype(np.float32),
+                         rng.random(N_CSR) < 0.3)
+    m = N_CSV
+    csv = {"k": rng.integers(-2**40, 2**40, m),
+           "v": rng.integers(-1000, 1000, m).astype(np.int32),
+           "x": rng.standard_normal(m),
+           "s": rng.integers(0, 100, m)}
+    hole = rng.random((m, 4)) < 0.03
+    text = [np.where(hole[:, 0], "", csv["k"].astype(str)),
+            np.where(hole[:, 1], "", csv["v"].astype(str)),
+            np.where(hole[:, 2], "", [repr(float(x)) for x in csv["x"]]),
+            np.where(hole[:, 3], "", np.char.add(
+                "w", np.char.zfill(csv["s"].astype(str), 2)))]
+    with open(csv_path, "w") as f:
+        f.write("\n".join(map(",".join, zip(*text))))
+        f.write("\n")
+    data["csv"] = (csv_path, csv, hole)
+    return data
+
+
+def run_abi_path(data, device):
+    """The ABI path on `device` through libgdf_tpu_torch.compat.gdf;
+    returns (results, per-step timings, the columns). Each step sits in an
+    NVTX range and ends in a device sync."""
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card \
+        else (lambda: None)
+    out, times = {}, {}
+
+    def step(name, rows, fn):
+        gdf.gdf_nvtx_range_push(f"ABI_{name}")
+        t0 = time.perf_counter()
+        out[name] = fn()
+        sync()
+        times[f"abi_{name}"] = (rows, time.perf_counter() - t0)
+        gdf.gdf_nvtx_range_pop()
+
+    if gdf.rmmInitialize() != 0 or not gdf.rmmIsInitialized():
+        fail("rmmInitialize")
+
+    path, _, _ = data["csv"]
+    arg = CSVReadArg(file_path=path, names=["k", "v", "x", "s"],
+                     dtype=["int64", "int32", "float64", "str"])
+    step("read_csv", N_CSV, lambda: gdf.read_csv(arg, device=device))
+    out["csv_scanner"] = arg.scanner
+    out["csv_categories"] = out["read_csv"].categories
+
+    c = {name: gdf.gdf_column_view(v[0], None if v[1] is None else ~v[1],
+                                   len(v[0]), device=device).with_name(name)
+         for name, v in data.items() if isinstance(v, tuple) and name != "csv"}
+    c["ts"] = gdf.gdf_cast_i64_to_timestamp(c["ts"], TimeUnit.ms)
+    sync()
+    n = N_FACT
+
+    step("add_i64", n, lambda: gdf.gdf_add_i64(c["key"], c["q"]))
+    step("mul_f32", n, lambda: gdf.gdf_mul_f32(c["f32"], c["f32"]))
+    step("floordiv_generic", n,
+         lambda: gdf.gdf_floordiv_generic(c["key"], c["i32"]))
+    step("cast_f32_to_i32", n, lambda: gdf.gdf_cast_f32_to_i32(c["f32"]))
+    step("sqrt_f64", n, lambda: gdf.gdf_sqrt_f64(c["f64"]))
+    step("extract_datetime", n, lambda: [
+        getattr(gdf, f"gdf_extract_datetime_{part}")(c["ts"])
+        for part in ("year", "month", "day", "hour", "minute", "second")])
+    step("validity_and", n, lambda: gdf.gdf_validity_and(c["key"], c["f64"]))
+
+    def stencil():
+        st = gdf.gpu_comparison_static_i64(c["key"], N_DIM // 2, "lt")
+        return st, gdf.gpu_apply_stencil(c["f64"], st)
+    step("stencil", n, stencil)
+    step("filter", n, lambda: gdf.gdf_filter([c["cat"], c["flag"]], (7, 2)))
+
+    left, right = [c["key"], c["i32"]], [c["dkey"], c["dw"]]
+    step("inner_join", n + N_DIM, lambda: gdf.gdf_inner_join(
+        left, 2, [0], right, 2, [0], 1))
+    step("left_join", n + N_DIM, lambda: gdf.gdf_left_join(
+        left, 2, [0], right, 2, [0], 1))
+    step("dup_inner_join", n + N_DIM, lambda: gdf.gdf_inner_join(
+        [c["pkey"]], 1, [0], [c["bkey"], c["dw"]], 2, [0], 1))
+
+    for name, op, val in (("group_by_sum_i64", "sum", "q"),
+                          ("group_by_sum_f64", "sum", "f64"),
+                          ("group_by_max_i64", "max", "q"),
+                          ("group_by_avg", "avg", "f64"),
+                          ("group_by_count", "count", "f64")):
+        step(name, n, lambda op=op, val=val: getattr(
+            gdf, f"gdf_group_by_{op}")(1, [c["key"]], c[val]))
+
+    step("order_by", n, lambda: gdf.gdf_order_by([c["cat"], c["key"]], 2))
+
+    def radix(descending, begin_bit, end_bit):
+        plan = gdf.gdf_radixsort_plan(n, descending, begin_bit, end_bit)
+        gdf.gdf_radixsort_plan_setup(plan, 4, 8)
+        res = gdf.gdf_radixsort_i32(plan, c["i32"], c["q"])
+        gdf.gdf_radixsort_plan_free(plan)
+        try:
+            gdf.gdf_radixsort_i32(plan, c["i32"], c["q"])
+        except GDFError:
+            return res
+        fail("a sort through a freed radixsort plan did not raise")
+    step("radixsort_i32", n, lambda: radix(False, 0, 0))
+    step("radixsort_i32_desc", n, lambda: radix(True, 0, 0))
+    step("radixsort_i32_bits_8_24", n, lambda: radix(False, 8, 24))
+
+    def seg_radix():
+        plan = gdf.gdf_segmented_radixsort_plan(n, False)
+        gdf.gdf_segmented_radixsort_plan_setup(plan, 8, 4)
+        res = gdf.gdf_segmented_radixsort_i64(
+            plan, c["q"], c["i32"], N_SEGMENTS, data["offsets"])
+        gdf.gdf_segmented_radixsort_plan_free(plan)
+        return res
+    step("segmented_radixsort_i64", n, seg_radix)
+
+    step("prefixsum_i64", n, lambda: gdf.gdf_prefixsum_i64(c["q"]))
+    step("reductions", n, lambda: [gdf.gdf_sum_f64(c["f64"]),
+                                   gdf.gdf_min_i32(c["i32"]),
+                                   gdf.gdf_max_generic(c["key"])])
+    step("quantile_exact", n, lambda: gdf.gdf_quantile_exact(c["f64"], 0.5))
+    step("hash", n, lambda: gdf.gdf_hash(2, [c["key"], c["i32"]]))
+    step("hash_columns", n,
+         lambda: gdf.gpu_hash_columns([c["key"], c["i32"]]))
+    step("hash_partition", n, lambda: gdf.gdf_hash_partition(
+        2, [c["key"], c["i32"]], [0], N_PARTS))
+    step("window_sum_rows", n, lambda: gdf.gdf_window_function(
+        c["f64"], "sum", "row", preceding=1000, order_columns=[c["o"]]))
+    step("to_csr", 4 * N_CSR,
+         lambda: gdf.gdf_to_csr([c[f"m{j}"] for j in range(4)], 4))
+
+    if on_card:
+        def rmm():
+            h = gdf.rmmAlloc(1 << 20)
+            gdf.rmmRealloc(h, 1 << 21)
+            gdf.rmmFree(h)
+            return gdf.rmmGetInfo()
+        step("rmm", 3, rmm)
+        lines = gdf.rmmGetLog().strip().splitlines()
+        total = torch.cuda.mem_get_info(device)[1]
+        events = [ln.split(",") for ln in lines[1:]]
+        if [e[0] for e in events] != ["Alloc", "Realloc", "Free"] or any(
+                int(e[6]) != total for e in events) or \
+                out["rmm"][1] != total or gdf.rmmLogSize() <= len(lines[0]):
+            fail(f"rmm log: {lines}")
+        out["rmm_log"] = lines
+    gdf.rmmFinalize()
+    return out, times, c
+
+
+def close(got, want, bound, what):
+    """|got - want| <= bound elementwise (NaN equals NaN); max error."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{what}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    diff = torch.where(both_nan | (got == want), 0.0,
+                       (got.double() - want.double()).abs())
+    if not bool((diff <= bound).all()):
+        fail(f"{what}: max error {float(diff.max())} over the bound")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def same_column(g, w, what, bound=None):
+    """Two Columns: dtype, name and validity exact; the valid rows' values
+    exact, or within `bound` (a float or a tensor aligned to the rows)."""
+    if g.info != w.info or g.name != w.name or g.size != w.size:
+        fail(f"{what}: {g.info}/{g.name}/{g.size} vs "
+             f"{w.info}/{w.name}/{w.size}")
+    if (g.valid is None) != (w.valid is None):
+        fail(f"{what}: one side has no validity mask")
+    gd, wd = g.data.cpu(), w.data.cpu()
+    if g.valid is not None:
+        exact(g.valid.cpu(), w.valid.cpu(), f"{what} validity")
+        ok = w.valid.cpu()
+        gd = torch.where(ok, gd, torch.zeros_like(gd))
+        wd = torch.where(ok, wd, torch.zeros_like(wd))
+    if bound is None:
+        return exact(gd, wd, what)
+    return close(gd, wd, bound, what)
+
+
+def same_columns(gs, ws, what):
+    if len(gs) != len(ws):
+        fail(f"{what}: {len(gs)} vs {len(ws)} columns")
+    for i, (g, w) in enumerate(zip(gs, ws)):
+        same_column(g, w, f"{what}[{i}]")
+
+
+def check_abi_path(gpu, cpu, c_cpu, data):
+    """The card's results against the CPU run's, to the tolerances of the
+    module docstring; the CSV columns also against the numbers written."""
+    _, csv, hole = data["csv"]
+    gt, ct = gpu["read_csv"], cpu["read_csv"]
+    same_columns(gt.columns, ct.columns, "read_csv")
+    if gpu["csv_categories"] != cpu["csv_categories"] or \
+            gt.capacity != N_CSV:
+        fail("read_csv: categories or row count")
+    for j, name in enumerate(("k", "v", "x", "s")):
+        vals, nulls = gt[name].to_numpy_masked()
+        if not (nulls == hole[:, j]).all():
+            fail(f"read_csv.{name}: null mask")
+        if name == "s":
+            cats = gpu["csv_categories"]["s"]
+            vals = np.asarray([int(w[1:]) for w in cats])[vals]
+        if not (vals[~nulls] == csv[name][~nulls]).all():
+            fail(f"read_csv.{name}: values")
+
+    for name in ("add_i64", "mul_f32", "floordiv_generic", "cast_f32_to_i32",
+                 "validity_and", "order_by", "prefixsum_i64", "hash",
+                 "hash_columns"):
+        same_column(gpu[name], cpu[name], name)
+    x = c_cpu["f64"]
+    same_column(gpu["sqrt_f64"], cpu["sqrt_f64"], "sqrt_f64",
+                1e-12 * cpu["sqrt_f64"].data.abs().nan_to_num(0.0))
+    same_columns(gpu["extract_datetime"], cpu["extract_datetime"],
+                 "extract_datetime")
+    same_columns(gpu["stencil"], cpu["stencil"], "stencil")
+    for name in ("filter", "inner_join", "left_join", "dup_inner_join"):
+        same_columns(gpu[name], cpu[name], name)
+        if gpu[name][0].size == 0:
+            fail(f"{name}: empty")
+    if gpu["dup_inner_join"][0].size < 3 * N_FACT:
+        fail("dup_inner_join: too few rows")
+    if gpu["left_join"][0].size != N_FACT:
+        fail("left_join: a probe row is missing")
+
+    absx = Column.from_array(x.data.abs(), valid=x.valid)
+    _, abs_sum = gdf.gdf_group_by_sum(1, [c_cpu["key"]], absx)
+    count = cpu["group_by_count"][1].data.clamp(min=1).double()
+    bounds = {"group_by_sum_f64": 1e-12 * abs_sum.data + 1e-300,
+              "group_by_avg": 1e-12 * abs_sum.data / count + 1e-300}
+    err = 0.0
+    for name in ("group_by_sum_i64", "group_by_sum_f64", "group_by_max_i64",
+                 "group_by_avg", "group_by_count"):
+        same_columns(gpu[name][0], cpu[name][0], f"{name} keys")
+        e = same_column(gpu[name][1], cpu[name][1], name, bounds.get(name))
+        err = max(err, e)
+        if gpu[name][1].size < N_DIM // 2:
+            fail(f"{name}: too few groups")
+
+    for name in ("radixsort_i32", "radixsort_i32_desc",
+                 "radixsort_i32_bits_8_24", "segmented_radixsort_i64"):
+        same_columns(gpu[name], cpu[name], name)
+    keys = gpu["radixsort_i32"][0].data
+    if not bool((keys[1:] >= keys[:-1]).all()):
+        fail("radixsort_i32: keys not ascending")
+
+    total = float(torch.where(x.valid, x.data.abs(), 0.0).sum())
+    gs, cs = (r["reductions"] for r in (gpu, cpu))
+    close(gs[0].cpu(), cs[0], 1e-12 * total, "sum_f64")
+    exact(gs[1].cpu(), cs[1], "min_i32")
+    exact(gs[2].cpu(), cs[2], "max_generic")
+    exact(gpu["quantile_exact"].cpu(), cpu["quantile_exact"],
+          "quantile_exact")
+    same_columns(gpu["hash_partition"][0], cpu["hash_partition"][0],
+                 "hash_partition")
+    exact(gpu["hash_partition"][1].cpu(), cpu["hash_partition"][1],
+          "hash_partition offsets")
+    same_column(gpu["window_sum_rows"], cpu["window_sum_rows"],
+                "window_sum_rows", 2e-12 * total)
+    g, w = gpu["to_csr"], cpu["to_csr"]
+    if (g.rows, g.cols, g.dtype, int(g.nnz)) != (w.rows, w.cols, w.dtype,
+                                                 int(w.nnz)):
+        fail("to_csr: shape or nnz")
+    for f in ("A", "IA", "JA"):
+        exact(getattr(g, f).cpu(), getattr(w, f), f"to_csr.{f}")
+    return err
+
+
+def check_nvtx_range(dev):
+    """A range pushed through the ABI shows by name in a torch.profiler
+    trace of the card."""
+    from torch.profiler import ProfilerActivity, profile
+    a = gdf.gdf_column_view(torch.arange(1 << 20, device=dev))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        gdf.gdf_nvtx_range_push("LIBGDF_ABI_RANGE")
+        gdf.gdf_add_i64(a, a)
+        torch.cuda.synchronize()
+        gdf.gdf_nvtx_range_pop()
+    if not any(e.key == "LIBGDF_ABI_RANGE" for e in prof.key_averages()):
+        fail("the pushed range is not in the profile")
+    print("nvtx: range LIBGDF_ABI_RANGE seen in the torch.profiler trace",
+          flush=True)
 
 
 def profile_op(fn):
@@ -806,19 +1151,48 @@ def main():
     print(f"analytic path: GPU results match the CPU run "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    del agpu, acpu, W_cpu
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        bdata = make_abi_data(os.path.join(tmp, "abi.csv"), 0)
+        print(f"abi data and csv file {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        (bgpu, btimes, _), blaunches = drive("abi", run_abi_path, bdata,
+                                              dev, card)
+        t0 = time.perf_counter()
+        bcpu, _, c_cpu = run_abi_path(bdata, torch.device("cpu"))
+        print(f"cpu run of the abi path {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    missing = [k for k in ABI_KERNELS if blaunches.get(k, 0) == 0]
+    if missing:
+        fail(f"abi path launched no {missing}")
+    if bgpu["read_csv"].device.type != "cuda":
+        fail("read_csv did not land on the card")
+    print(f"abi read_csv: scanner={bgpu['csv_scanner']} (cpu run: "
+          f"{bcpu['csv_scanner']}); rmm log {bgpu['rmm_log']}", flush=True)
+    t0 = time.perf_counter()
+    err = check_abi_path(bgpu, bcpu, c_cpu, bdata)
+    print(f"abi path: GPU results match the CPU run (group sums max error "
+          f"{err}; {time.perf_counter() - t0:.1f} s)", flush=True)
+    del bgpu, bcpu, c_cpu, bdata
+    check_nvtx_range(dev)
+
     pipeline = {op: {"rows_in": rows, "seconds": secs,
                      "rows_per_s": rows / secs}
-                for op, (rows, secs) in {**times, **atimes}.items()}
+                for op, (rows, secs) in {**times, **atimes, **btimes}.items()}
     print(json.dumps({"pipeline": pipeline, "card": card}), flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
-         "launches": launches[name] + alaunches[name],
+         "launches": launches[name] + alaunches[name] + blaunches[name],
          "launches_by_path": {
              "main": {k: v for k, v in launches.items()
                       if k.split("[")[0] == name},
              "analytic": {k: v for k, v in alaunches.items()
-                          if k.split("[")[0] == name}},
+                          if k.split("[")[0] == name},
+             "abi": {k: v for k, v in blaunches.items()
+                     if k.split("[")[0] == name}},
          **{k: v for k, v in stats[name].items() if k != "shape"}}
         for name in SOURCES]}), flush=True)
     print(card, flush=True)

@@ -1,11 +1,16 @@
-from .dtypes import DtypeInfo, GDFDtype, TimeUnit, dtype_from_numpy
+from .dtypes import (GDFDtype, TimeUnit, DtypeInfo, byte_width,
+                     dtype_from_numpy, WindowFunctionType,
+                     WindowReductionType)
 from .errors import GDFError, GDFStatus, error_get_name, require
-from .column import Column
-from .table import Table
+from .column import Column, column_concat
+from .table import Table, table_concat
+from .context import Context, Method, context_view
 from . import bitmask
 
 __all__ = [
-    "GDFDtype", "TimeUnit", "DtypeInfo", "dtype_from_numpy",
+    "GDFDtype", "TimeUnit", "DtypeInfo", "byte_width", "dtype_from_numpy",
+    "WindowFunctionType", "WindowReductionType",
     "GDFError", "GDFStatus", "error_get_name", "require",
-    "Column", "Table", "bitmask",
+    "Column", "column_concat", "Table", "table_concat",
+    "Context", "Method", "context_view", "bitmask",
 ]

@@ -36,6 +36,17 @@ def unpack_bitmask(mask: torch.Tensor, nrows: int) -> torch.Tensor:
     return bits.reshape(-1)[:nrows].to(torch.bool)
 
 
+def count_valid(valid: torch.Tensor | None, nrows: int,
+                device=None) -> torch.Tensor:
+    """Number of valid (non-null) rows, a 0-d int32 tensor.
+
+    ≅ gdf_count_nonzero_mask (src/validops.cu:84-196). With no mask the
+    count is `nrows`, on `device` (default: the CPU, it is a host number)."""
+    if valid is None:
+        return torch.tensor(nrows, dtype=torch.int32, device=device)
+    return valid.sum(dtype=torch.int32)
+
+
 def mask_and(a: torch.Tensor | None, b: torch.Tensor | None):
     """AND two optional bool masks (None = all-valid).
 
@@ -54,3 +65,28 @@ def mask_or(a: torch.Tensor | None, b: torch.Tensor | None):
     if b is None:
         return a
     return a | b
+
+
+def mask_concat(masks, lengths, device=None) -> torch.Tensor:
+    """Concatenate unpacked masks (≅ gdf_mask_concat, src/validops.cu:
+    203-258); None stands for an all-valid mask of its length. The result
+    lies with the first mask given, or on `device` if every mask is None
+    (default: the card, as for host data)."""
+    if device is None:
+        device = next((m.device for m in masks if m is not None), None)
+    device = _host_data_device(device)
+    parts = [torch.ones(n, dtype=torch.bool, device=device) if m is None
+             else m[:n] for m, n in zip(masks, lengths)]
+    return torch.cat(parts)
+
+
+def all_bitmask_on(nrows: int, device=None) -> torch.Tensor:
+    """≅ all_bitmask_on (src/bitmaskops.cu:56-77): an all-valid mask, on the
+    card unless `device` says otherwise."""
+    return torch.ones(nrows, dtype=torch.bool,
+                      device=_host_data_device(device))
+
+
+def _host_data_device(device=None) -> torch.device:
+    from .column import host_data_device  # column.py imports this module
+    return host_data_device(device)

@@ -19,7 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .bitmask import unpack_bitmask
+from .bitmask import pack_bool_mask, unpack_bitmask
 from .dtypes import DtypeInfo, GDFDtype, TimeUnit, dtype_from_numpy, physical_dtype
 from .errors import GDFError, GDFStatus
 
@@ -46,6 +46,8 @@ def as_tensor(x, device=None, dtype: torch.dtype | None = None) -> torch.Tensor:
     if dtype is not None:
         np_dt = torch.empty((), dtype=dtype).numpy().dtype
         arr = arr.astype(np_dt, copy=False)
+    if not arr.flags.writeable:
+        arr = arr.copy()    # a CPU tensor would share the read-only buffer
     return torch.as_tensor(np.ascontiguousarray(arr),
                            device=host_data_device(device))
 
@@ -113,6 +115,16 @@ class Column:
     def device(self) -> torch.device:
         return self.data.device
 
+    @property
+    def gdf_dtype(self) -> GDFDtype:
+        return self.info.gdf_dtype
+
+    @property
+    def has_nulls(self) -> bool:
+        """Structural: whether a validity mask is attached (not whether any
+        bit is actually 0: that would force a sync)."""
+        return self.valid is not None
+
     def null_count(self) -> torch.Tensor:
         """0-d device count of NULL rows."""
         if self.valid is None:
@@ -134,3 +146,40 @@ class Column:
 
     def with_name(self, name: str) -> "Column":
         return replace(self, name=name)
+
+    # -- interchange ---------------------------------------------------------
+
+    def packed_bitmask(self) -> Optional[torch.Tensor]:
+        """Arrow-layout packed validity (interchange; core/bitmask.py)."""
+        if self.valid is None:
+            return None
+        return pack_bool_mask(self.valid)
+
+    def to_numpy_masked(self):
+        """Return (values: np.ndarray, null_mask: np.ndarray bool); copies
+        to the host, so it syncs."""
+        vals = self.data.cpu().numpy()
+        nulls = (np.zeros(self.size, bool) if self.valid is None
+                 else ~self.valid.cpu().numpy())
+        return vals, nulls
+
+
+def column_concat(columns) -> Column:
+    """Concatenate columns of identical dtype, merging validity.
+
+    ≅ gdf_column_concat (src/column.cpp:53-153): the output has a mask iff
+    any input does."""
+    columns = list(columns)
+    if not columns:
+        raise GDFError(GDFStatus.GDF_DATASET_EMPTY, "concat of zero columns")
+    info = columns[0].info
+    for c in columns[1:]:
+        if c.info.gdf_dtype != info.gdf_dtype:
+            raise GDFError(GDFStatus.GDF_DTYPE_MISMATCH,
+                           "concat dtype mismatch")
+    data = torch.cat([c.data for c in columns])
+    if any(c.valid is not None for c in columns):
+        valid = torch.cat([c.valid_or_true() for c in columns])
+    else:
+        valid = None
+    return Column(data=data, valid=valid, info=info, name=columns[0].name)

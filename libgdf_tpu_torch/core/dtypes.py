@@ -41,6 +41,25 @@ class TimeUnit(enum.IntEnum):
     ns = 4
 
 
+class WindowFunctionType(enum.IntEnum):
+    """types.h:197-200 `window_function_type` (frames of ops/window.py)."""
+
+    GDF_WINDOW_RANGE = 0
+    GDF_WINDOW_ROW = 1
+
+
+class WindowReductionType(enum.IntEnum):
+    """types.h:202-210 `window_reduction_type`."""
+
+    GDF_WINDOW_AVG = 0
+    GDF_WINDOW_SUM = 1
+    GDF_WINDOW_MAX = 2
+    GDF_WINDOW_MIN = 3
+    GDF_WINDOW_COUNT = 4
+    GDF_WINDOW_STDDEV = 5
+    GDF_WINDOW_VAR = 6
+
+
 # Physical torch dtype backing each logical dtype.
 _PHYSICAL = {
     GDFDtype.INT8: torch.int8,
@@ -53,6 +72,20 @@ _PHYSICAL = {
     GDFDtype.DATE64: torch.int64,
     GDFDtype.TIMESTAMP: torch.int64,
     GDFDtype.CATEGORY: torch.int32,
+}
+
+# Byte widths (reference: src/column.cpp:237-275 get_column_byte_width).
+_BYTE_WIDTH = {
+    GDFDtype.INT8: 1,
+    GDFDtype.INT16: 2,
+    GDFDtype.INT32: 4,
+    GDFDtype.INT64: 8,
+    GDFDtype.FLOAT32: 4,
+    GDFDtype.FLOAT64: 8,
+    GDFDtype.DATE32: 4,
+    GDFDtype.DATE64: 8,
+    GDFDtype.TIMESTAMP: 8,
+    GDFDtype.CATEGORY: 4,
 }
 
 # Default logical dtype for a raw numpy dtype (as in the JAX package).
@@ -93,6 +126,19 @@ class DtypeInfo:
     def physical(self) -> torch.dtype:
         return _PHYSICAL[self.gdf_dtype]
 
+    @property
+    def byte_width(self) -> int:
+        return _BYTE_WIDTH[self.gdf_dtype]
+
+    @property
+    def is_floating(self) -> bool:
+        return self.gdf_dtype in (GDFDtype.FLOAT32, GDFDtype.FLOAT64)
+
+    @property
+    def is_datetime(self) -> bool:
+        return self.gdf_dtype in (
+            GDFDtype.DATE32, GDFDtype.DATE64, GDFDtype.TIMESTAMP)
+
 
 def dtype_from_numpy(dt) -> GDFDtype:
     """Infer the logical dtype for a numpy dtype or a torch dtype."""
@@ -108,3 +154,10 @@ def dtype_from_numpy(dt) -> GDFDtype:
 
 def physical_dtype(gdf_dtype: GDFDtype) -> torch.dtype:
     return _PHYSICAL[gdf_dtype]
+
+
+def byte_width(gdf_dtype: GDFDtype) -> int:
+    """≅ get_column_byte_width (src/column.cpp:237-275)."""
+    if gdf_dtype not in _BYTE_WIDTH:
+        raise TypeError(f"no byte width for {gdf_dtype}")
+    return _BYTE_WIDTH[gdf_dtype]

@@ -12,10 +12,11 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from .bitmask import mask_and
-from .column import Column
+from .column import Column, as_tensor, column_concat
 from .errors import GDFStatus, require
 
 
@@ -62,6 +63,24 @@ class Table:
                 for k, v in data.items()]
         return Table.from_columns(cols)
 
+    @staticmethod
+    def from_pandas(df, device=None) -> "Table":
+        """A pandas DataFrame's columns, NaN / NA as NULL; devices as in
+        from_dict."""
+        cols = []
+        for name in df.columns:
+            s = df[name]
+            null = s.isna().to_numpy()
+            vals = s.to_numpy()
+            if null.any():
+                vals = np.where(null, 0, vals).astype(vals.dtype)
+                cols.append(Column.from_masked(vals, null, name=str(name),
+                                               device=device))
+            else:
+                cols.append(Column.from_array(vals, name=str(name),
+                                              device=device))
+        return Table.from_columns(cols)
+
     # -- introspection -------------------------------------------------------
 
     @property
@@ -77,6 +96,10 @@ class Table:
     def device(self) -> torch.device:
         return self.columns[0].device
 
+    def row_count(self):
+        """Live row count: the 0-d `num_rows` tensor, or the capacity."""
+        return self.capacity if self.num_rows is None else self.num_rows
+
     def column(self, name: str) -> Column:
         try:
             return self.columns[self.names.index(name)]
@@ -85,6 +108,22 @@ class Table:
 
     def __getitem__(self, name: str) -> Column:
         return self.column(name)
+
+    def select(self, names: Sequence[str]) -> "Table":
+        cols = tuple(self.column(n) for n in names)
+        return replace(self, columns=cols, names=tuple(names))
+
+    def replace_column(self, name: str, col: Column) -> "Table":
+        i = self.names.index(name)
+        cols = list(self.columns)
+        cols[i] = col.with_name(name)
+        return replace(self, columns=tuple(cols))
+
+    def with_column(self, col: Column) -> "Table":
+        if col.name in self.names:
+            return self.replace_column(col.name, col)
+        return replace(self, columns=self.columns + (col,),
+                       names=self.names + (col.name,))
 
     def with_num_rows(self, num_rows) -> "Table":
         return replace(self, num_rows=_count_tensor(num_rows, self.device))
@@ -122,6 +161,66 @@ class Table:
                               device=self.device)
         return m
 
+    def _indices(self, idx) -> torch.Tensor:
+        return as_tensor(idx, self.device, torch.int32).to(torch.int64)
+
+    def rows_equal(self, other: "Table", my_idx, other_idx) -> torch.Tensor:
+        """Row equality between index vectors into two tables; out-of-range
+        indices are clipped.
+
+        ≅ gdf_table::rows_equal (gdf_table.cuh:580-691): a row holding a
+        NULL equals nothing."""
+        require(self.num_columns == other.num_columns,
+                GDFStatus.GDF_JOIN_DTYPE_MISMATCH, "column count mismatch")
+        mi = self._indices(my_idx).clamp(0, max(self.capacity - 1, 0))
+        oi = other._indices(other_idx).clamp(0, max(other.capacity - 1, 0))
+        eq = self.row_validity()[mi] & other.row_validity()[oi]
+        for a, b in zip(self.columns, other.columns):
+            require(a.info.gdf_dtype == b.info.gdf_dtype,
+                    GDFStatus.GDF_JOIN_DTYPE_MISMATCH,
+                    f"dtype mismatch {a.name}/{b.name}")
+            eq = eq & (a.data[mi] == b.data[oi])
+        return eq
+
+    def gather(self, indices, fill_invalid: bool = False,
+               num_rows=None) -> "Table":
+        """New table = rows at `indices` (clipped into range).
+
+        ≅ gdf_table::gather(range_check) (gdf_table.cuh:874-1010): with
+        `fill_invalid`, out-of-range indices (the -1 of outer joins) give
+        NULL rows."""
+        idx = self._indices(indices)
+        in_range = None
+        if fill_invalid:
+            in_range = (idx >= 0) & (idx < self.capacity)
+        idx = idx.clamp(0, max(self.capacity - 1, 0))
+        cols = []
+        for c in self.columns:
+            valid = None if c.valid is None else c.valid[idx]
+            cols.append(replace(c, data=c.data[idx],
+                                valid=mask_and(valid, in_range)))
+        return Table(columns=tuple(cols), names=self.names,
+                     num_rows=_count_tensor(num_rows, self.device))
+
+    def scatter(self, locations, out_capacity: int | None = None) -> "Table":
+        """New table with row i placed at locations[i]; untouched rows are
+        zero and, in a nullable column, NULL.
+
+        ≅ gdf_table::scatter (gdf_table.cuh:1071-1192)."""
+        loc = self._indices(locations)
+        cap = out_capacity or self.capacity
+        cols = []
+        for c in self.columns:
+            data = torch.zeros(cap, dtype=c.data.dtype, device=self.device)
+            data[loc] = c.data
+            valid = c.valid
+            if valid is not None:
+                valid = torch.zeros(cap, dtype=torch.bool, device=self.device)
+                valid[loc] = c.valid
+            cols.append(replace(c, data=data, valid=valid))
+        return Table(columns=tuple(cols), names=self.names,
+                     num_rows=self.num_rows)
+
     # -- host-side helpers ----------------------------------------------------
 
     def compact(self) -> "Table":
@@ -134,3 +233,31 @@ class Table:
                     valid=None if c.valid is None else c.valid[:n])
             for c in self.columns)
         return Table(columns=cols, names=self.names, num_rows=None)
+
+    def to_pandas(self):
+        import pandas as pd
+        t = self.compact()
+        out = {}
+        for name, c in zip(t.names, t.columns):
+            vals, nulls = c.to_numpy_masked()
+            if nulls.any():
+                s = pd.Series(vals)
+                s[nulls] = pd.NA
+                out[name] = s
+            else:
+                out[name] = pd.Series(vals)
+        return pd.DataFrame(out)
+
+
+def table_concat(tables: Sequence[Table]) -> Table:
+    """Row-wise concatenation (≅ gdf_column_concat per column,
+    src/column.cpp:53-153). Every input must be fully live (no num_rows)."""
+    first = tables[0]
+    for t in tables:
+        require(t.names == first.names, GDFStatus.GDF_DTYPE_MISMATCH,
+                "schema mismatch in concat")
+        require(t.num_rows is None, GDFStatus.GDF_INVALID_API_CALL,
+                "concat of padded tables: compact() first")
+    cols = tuple(column_concat([t.columns[i] for t in tables])
+                 for i in range(first.num_columns))
+    return Table(columns=cols, names=first.names)

@@ -17,6 +17,22 @@ from ..utils.metrics import op_metrics, table_bytes
 from .kernels import compact
 
 
+def compaction_indices(keep: torch.Tensor):
+    """Return (src_indices: int32[n], count: 0-d int32): the indices of the
+    kept rows first, then those of the dropped rows, both in their original
+    order. The j-th output row (j < count) comes from src_indices[j].
+
+    The JAX package takes this permutation from a stable sort of the drop
+    flag; here it is two H1 compactions of an iota (by `keep`, then by its
+    complement), O(n), stitched at the count without a sync."""
+    n = keep.shape[0]
+    iota = torch.arange(n, dtype=torch.int32, device=keep.device)
+    (kept,), count = compact_arrays([iota], keep)
+    (dropped,), _ = compact_arrays([iota], ~keep)
+    tail = (iota - count).clamp(min=0).to(torch.int64)
+    return torch.where(iota < count, kept, dropped[tail]), count
+
+
 def compact_arrays(arrays, keep: torch.Tensor):
     """Stable stream compaction of raw 1-D tensors: (compacted, count)."""
     return compact(arrays, keep)

@@ -269,3 +269,35 @@ def _scan_agg(vals, avalid, starts, op, group_live, out_name):
         return Column(data=xs[0], valid=group_live & xs[1], info=info,
                       name=out_name)
     return [out, okay], build
+
+
+def count_distinct_keys(table: Table, key_names: Sequence[str],
+                        dropna: bool = True):
+    """0-d count of distinct key tuples.
+
+    ≅ GDF_COUNT_DISTINCT collapsing to a single value
+    (sqls_rtti_comp.hpp:400-441 DISTINCT branch)."""
+    g = groupby(table, key_names,
+                aggs=[(key_names[0], "count", "_c")], dropna=dropna)
+    return g.num_rows
+
+
+def group_by_sum(table, keys, agg_col):
+    """≅ gdf_group_by_sum (sqls_ops.cu:1426-1436)."""
+    return groupby(table, keys, [(agg_col, "sum", "out")])
+
+
+def group_by_min(table, keys, agg_col):
+    return groupby(table, keys, [(agg_col, "min", "out")])
+
+
+def group_by_max(table, keys, agg_col):
+    return groupby(table, keys, [(agg_col, "max", "out")])
+
+
+def group_by_avg(table, keys, agg_col):
+    return groupby(table, keys, [(agg_col, "avg", "out")])
+
+
+def group_by_count(table, keys):
+    return groupby(table, keys, [(keys[0], "count", "out")])

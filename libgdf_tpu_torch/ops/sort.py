@@ -23,7 +23,7 @@ from typing import Sequence
 import torch
 
 from ..core.bits import f64_ieee_bits
-from ..core.column import Column
+from ..core.column import Column, as_tensor
 from ..core.errors import GDFStatus, require
 from ..core.table import Table
 from ..utils.metrics import op_metrics, table_bytes
@@ -200,6 +200,14 @@ def key_fields(table: Table, key_names: Sequence[str], ascending,
     return fields
 
 
+def key_operands(table: Table, key_names: Sequence[str], ascending,
+                 nulls_last: bool = True) -> list:
+    """The packed sort words (signed form) of a lexicographic table sort:
+    every flag and encoding shares the fewest 64-bit words."""
+    return pack_bit_fields(
+        key_fields(table, key_names, ascending, nulls_last))
+
+
 def order_by(table: Table, key_names: Sequence[str], ascending=True,
              nulls_last: bool = True) -> torch.Tensor:
     """The permutation (int32[capacity]) that sorts the table by the key
@@ -231,3 +239,71 @@ def sort_table(table: Table, key_names: Sequence[str] | None = None,
                    info=c.info, name=c.name) for c in table.columns]
     return Table(columns=tuple(cols), names=table.names,
                  num_rows=table.num_rows)
+
+
+# ---------------------------------------------------------------------------
+# CUB-style key/value radix sorts (sorting.cu, segmented_sorting.cu)
+# ---------------------------------------------------------------------------
+
+def _restricted_key(data: torch.Tensor, descending: bool, begin_bit: int,
+                    end_bit: int | None) -> torch.Tensor:
+    """The sort key of a radix sort restricted to bits [begin_bit, end_bit)
+    of the key's unsigned order word U (the JAX package's radix_encode), as
+    an int64 whose signed order is the order of that bit field. With the
+    full range it is the signed-form encoding itself. Descending inverts
+    within the selected field only."""
+    nbits = radix_width(data.dtype)
+    enc = radix_encode(data, ascending=True)
+    end_bit = nbits if end_bit is None else end_bit
+    if begin_bit <= 0 and end_bit >= nbits:
+        return ~enc if descending else enc
+    mask = (1 << (end_bit - begin_bit)) - 1     # narrower than the key
+    field = _shr(radix_bits(enc, nbits), begin_bit) & mask
+    return mask - field if descending else field
+
+
+def radixsort(keys: Column, values: Column | None = None,
+              descending: bool = False, begin_bit: int = 0,
+              end_bit: int | None = None):
+    """Sort (key, value) pairs; returns (sorted_keys, sorted_values).
+
+    ≅ gdf_radixsort_* via cub::DeviceRadixSort::SortPairs[Descending]
+    (sorting.cu:48-135). `begin_bit` / `end_bit` restrict the comparison to
+    a bit range of the radix representation, as CUB does; rows whose
+    restricted keys are equal keep their input order."""
+    enc = _restricted_key(keys.data, descending, begin_bit, end_bit)
+    operands = [enc, keys.data]
+    if values is not None:
+        require(values.size == keys.size,
+                GDFStatus.GDF_COLUMN_SIZE_MISMATCH)
+        operands.append(values.data)
+    out = multi_sort(operands, num_keys=1)
+    sorted_vals = None if values is None else values.with_data(out[2])
+    return keys.with_data(out[1]), sorted_vals
+
+
+def segment_ids_from_offsets(offsets: torch.Tensor, n: int) -> torch.Tensor:
+    """Row -> segment id (int32) from a begin-offset array."""
+    iota = torch.arange(n, dtype=offsets.dtype, device=offsets.device)
+    return (torch.searchsorted(offsets, iota, side="right") - 1).to(
+        torch.int32)
+
+
+def segmented_radixsort(keys: Column, values: Column | None,
+                        segment_offsets, descending: bool = False,
+                        begin_bit: int = 0, end_bit: int | None = None):
+    """Per-segment key/value sort; segments given by begin offsets (the
+    first must be 0).
+
+    ≅ gdf_segmented_radixsort_* via cub::DeviceSegmentedRadixSort
+    (segmented_sorting.cu:51-160): one flat sort with the segment id as
+    the leading key."""
+    offsets = as_tensor(segment_offsets, keys.device, torch.int32)
+    seg = segment_ids_from_offsets(offsets, keys.size)
+    enc = _restricted_key(keys.data, descending, begin_bit, end_bit)
+    operands = [seg, enc, keys.data]
+    if values is not None:
+        operands.append(values.data)
+    out = multi_sort(operands, num_keys=2)
+    sorted_vals = None if values is None else values.with_data(out[3])
+    return keys.with_data(out[2]), sorted_vals

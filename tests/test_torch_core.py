@@ -11,15 +11,19 @@ import numpy as np
 import pytest
 import torch
 
+import libgdf_tpu
 from libgdf_tpu.core import bitmask as jbitmask
+from libgdf_tpu.core import context as jcontext
 from libgdf_tpu.core import bits as jbits
 from libgdf_tpu.core import dtypes as jdtypes
 from libgdf_tpu.core import errors as jerrors
 from libgdf_tpu_torch import Column, Table, ops
-from libgdf_tpu_torch.core import bitmask, bits, dtypes, errors
+from libgdf_tpu_torch import column_concat, table_concat
+from libgdf_tpu_torch.core import bitmask, bits, context, dtypes, errors
 from libgdf_tpu_torch.interop import from_numpy, to_numpy
 from libgdf_tpu_torch.utils import metrics
-from torch_parity import jax_to_numpy, make_tables
+from torch_parity import (assert_tables_match, jax_to_numpy, make_tables,
+                          np_of)
 
 PORT = pathlib.Path(__file__).resolve().parents[1] / "libgdf_tpu_torch"
 
@@ -28,6 +32,9 @@ PORT = pathlib.Path(__file__).resolve().parents[1] / "libgdf_tpu_torch"
     ("GDFStatus", (jerrors, errors)),
     ("GDFDtype", (jdtypes, dtypes)),
     ("TimeUnit", (jdtypes, dtypes)),
+    ("WindowFunctionType", (jdtypes, dtypes)),
+    ("WindowReductionType", (jdtypes, dtypes)),
+    ("Method", (jcontext, context)),
 ])
 def test_copied_enums_pinned(enum_name, module_pair):
     ref, port = (getattr(m, enum_name) for m in module_pair)
@@ -167,3 +174,151 @@ def test_metrics_record_filter_events():
     assert (ev.name, ev.rows_in, ev.rows_out) == ("LIBGDF_FILTER", 10, 4)
     assert metrics.write_log().splitlines()[0].startswith("op,rows_in")
     metrics.reset()
+
+
+def test_context_is_the_jax_packages_module():
+    """core/context.py imports no JAX, so the port keeps a verbatim copy
+    (importing the original would import JAX with its package)."""
+    assert pathlib.Path(context.__file__).read_text() == \
+        pathlib.Path(jcontext.__file__).read_text()
+    ctx = context.context_view(1, context.Method.HASH, 0, 1)
+    assert (ctx.flag_sorted, ctx.flag_method, ctx.flag_distinct,
+            ctx.flag_sort_result, ctx.flag_sort_inplace) == \
+        (True, context.Method.HASH, False, True, False)
+    assert context.Context() == context.context_view()
+
+
+def test_dtype_info_properties_and_byte_width():
+    for g in dtypes.GDFDtype:
+        jg = jdtypes.GDFDtype(g.value)
+        info, jinfo = dtypes.DtypeInfo(g), jdtypes.DtypeInfo(jg)
+        assert info.is_floating == jinfo.is_floating
+        assert info.is_datetime == jinfo.is_datetime
+        if g in (dtypes.GDFDtype.invalid, dtypes.GDFDtype.STRING):
+            with pytest.raises(TypeError):
+                dtypes.byte_width(g)
+            continue
+        assert dtypes.byte_width(g) == jdtypes.byte_width(jg) == \
+            info.byte_width == info.physical.itemsize
+
+
+def test_bitmask_count_concat_all_on():
+    v = np.array([1, 0, 1, 1, 0], bool)
+    assert int(bitmask.count_valid(torch.as_tensor(v), 5)) == \
+        int(jbitmask.count_valid(jnp.asarray(v), 5)) == 3
+    got = bitmask.count_valid(None, 7)
+    assert int(got) == 7 and got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        bitmask.mask_concat([torch.as_tensor(v), None, torch.as_tensor(v)],
+                            [5, 2, 3]).numpy(),
+        np.asarray(jbitmask.mask_concat([jnp.asarray(v), None,
+                                         jnp.asarray(v)], [5, 2, 3])))
+    assert bitmask.mask_concat([None], [3], device="cpu").tolist() == \
+        [True] * 3
+    on = bitmask.all_bitmask_on(9, device="cpu")
+    assert on.dtype == torch.bool and on.tolist() == [True] * 9
+
+
+def test_column_introspection_and_interchange():
+    jt, tt = make_tables(COLUMNS, NULLS)
+    for name in COLUMNS:
+        jc, tc = jt[name], tt[name]
+        assert tc.gdf_dtype.value == jc.gdf_dtype.value
+        assert tc.has_nulls == jc.has_nulls == (name in NULLS)
+        jv, jn = jc.to_numpy_masked()
+        tv, tn = tc.to_numpy_masked()
+        np.testing.assert_array_equal(tv, jv)
+        np.testing.assert_array_equal(tn, jn)
+        if tc.has_nulls:
+            np.testing.assert_array_equal(tc.packed_bitmask().numpy(),
+                                          np.asarray(jc.packed_bitmask()))
+        else:
+            assert tc.packed_bitmask() is None
+
+
+def test_column_and_table_concat():
+    jt, tt = make_tables(COLUMNS, NULLS)
+    for name in ("i32", "f64"):
+        jc = libgdf_tpu.column_concat([jt[name], jt[name]])
+        tc = column_concat([tt[name], tt[name]])
+        assert (tc.valid is None) == (jc.valid is None)
+        np.testing.assert_array_equal(np_of(tc.data), np_of(jc.data))
+        assert tc.name == jc.name and tc.size == 10
+    _, plain = make_tables({"i32": COLUMNS["i32"]})
+    mixed = column_concat([plain["i32"], tt["i32"]])
+    assert mixed.valid.tolist() == [True] * 5 + (~NULLS["i32"]).tolist()
+    assert_tables_match(libgdf_tpu.table_concat([jt, jt, jt]),
+                        table_concat([tt, tt, tt]))
+    with pytest.raises(errors.GDFError):
+        column_concat([])
+    with pytest.raises(errors.GDFError):
+        column_concat([tt["i32"], tt["i64"]])
+    with pytest.raises(errors.GDFError):
+        table_concat([tt, tt.with_num_rows(2)])
+    with pytest.raises(errors.GDFError):
+        table_concat([tt, tt.select(["i32"])])
+
+
+def test_table_select_replace_with_column_row_count():
+    jt, tt = make_tables(COLUMNS, NULLS)
+    assert_tables_match(jt.select(["f32", "i32"]), tt.select(["f32", "i32"]))
+    assert tt.row_count() == jt.row_count() == 5
+    assert int(tt.with_num_rows(3).row_count()) == 3
+    jr = jt.replace_column("i32", jt["i64"])
+    tr = tt.replace_column("i32", tt["i64"])
+    assert tr.names == jr.names and tr["i32"].name == "i32"
+    assert_tables_match(jr, tr)
+    jw = jt.with_column(jt["b"].with_name("z")).with_column(
+        jt["i64"].with_name("i32"))
+    tw = tt.with_column(tt["b"].with_name("z")).with_column(
+        tt["i64"].with_name("i32"))
+    assert tw.names == jw.names
+    assert_tables_match(jw, tw)
+
+
+@pytest.mark.parametrize("fill_invalid", [False, True])
+def test_table_gather_scatter_rows_equal(fill_invalid):
+    jt, tt = make_tables(COLUMNS, NULLS)
+    idx = np.array([4, 0, -1, 7, 2, 2], np.int32)
+    assert_tables_match(jt.gather(idx, fill_invalid=fill_invalid),
+                        tt.gather(idx, fill_invalid=fill_invalid))
+    assert_tables_match(
+        jt.gather(idx, fill_invalid=fill_invalid, num_rows=4),
+        tt.gather(torch.as_tensor(idx), fill_invalid=fill_invalid,
+                  num_rows=4))
+    loc = np.array([6, 0, 3, 1, 4], np.int32)
+    js, ts = jt.scatter(loc, out_capacity=8), tt.scatter(loc, out_capacity=8)
+    assert_tables_match(js, ts)
+    for name in js.names:      # untouched rows too
+        np.testing.assert_array_equal(np_of(ts[name].data),
+                                      np_of(js[name].data))
+    a, b = np.array([0, 1, 2, 3, 4, 2]), np.array([0, 1, 2, 4, 4, 2])
+    np.testing.assert_array_equal(
+        np_of(tt.rows_equal(tt, a, b)),
+        np_of(jt.rows_equal(jt, jnp.asarray(a), jnp.asarray(b))))
+
+
+def test_table_pandas_round_trip():
+    pd = pytest.importorskip("pandas")
+    df = pd.DataFrame({"a": [1.5, None, 3.0], "b": [1, 2, 3],
+                       "c": pd.array([1, None, 3], dtype="Int64")})
+    jt = libgdf_tpu.Table.from_pandas(df[["a", "b"]])
+    tt = Table.from_pandas(df[["a", "b"]], device="cpu")
+    assert_tables_match(jt, tt)
+    back = tt.to_pandas()
+    assert back["b"].tolist() == [1, 2, 3]
+    assert back["a"].isna().tolist() == [False, True, False]
+    pd.testing.assert_frame_equal(back, jt.to_pandas())
+
+
+def test_tracing_ranges_and_colors():
+    from libgdf_tpu.utils import tracing as jtracing
+    from libgdf_tpu_torch.utils import tracing
+    for name in dir(jtracing):
+        if name.startswith("GDF_"):
+            assert getattr(tracing, name) == getattr(jtracing, name)
+    tracing.range_pop()                      # nothing open: a no-op
+    with tracing.op_range("LIBGDF_JOIN", tracing.GDF_BLUE):
+        tracing.range_push_hex("inner", 0xff)
+        tracing.range_pop()
+    assert tracing._ranges() == []

@@ -396,3 +396,185 @@ def test_quantiles_and_reductions_gpu_match_cpu(dev, n):
     torch.testing.assert_close(ops.reduce(t["v"], "sum").cpu(),
                                ops.reduce(c["v"], "sum"), rtol=1e-5,
                                atol=1e-5 * float(c["v"].data.abs().sum()))
+
+
+# -- the flat gdf_* ABI on the card, against the same calls on CPU tensors ---
+
+def _abi_same(g, c, rtol=None):
+    """A Column from the card against the CPU's: dtype, validity and the
+    valid rows' values (exact, or to rtol)."""
+    assert g.device.type == "cuda" and c.device.type == "cpu"
+    assert g.info == c.info and g.size == c.size
+    assert (g.valid is None) == (c.valid is None)
+    gd, cd = g.data.cpu(), c.data
+    if c.valid is not None:
+        torch.testing.assert_close(g.valid.cpu(), c.valid, rtol=0, atol=0)
+        gd, cd = gd[c.valid], cd[c.valid]
+    torch.testing.assert_close(gd, cd, rtol=rtol or 0, atol=0,
+                               equal_nan=True)
+
+
+def _views(gdf, data, null=None):
+    valid = None if null is None else ~null
+    return (gdf.gdf_column_view(data, valid),
+            gdf.gdf_column_view(data, valid, device="cpu"))
+
+
+def test_abi_pipeline_on_the_card(dev):
+    """view -> compare -> stencil -> join -> group_by -> order_by ->
+    radixsort -> prefixsum -> csr: numpy goes to the card by default, and
+    every result equals the CPU run's."""
+    from libgdf_tpu_torch.compat import gdf
+    rng = np.random.default_rng(5)
+    n, m = 300_000, 20_000
+    key = rng.integers(0, m, n)
+    knull = rng.random(n) < 0.05
+    res = []
+    for device in (None, "cpu"):
+        def mk(d, v=None, name=""):
+            return gdf.gdf_column_view(
+                d, None if v is None else ~v, device=device).with_name(name)
+        k = mk(key, knull, "k")
+        a = mk(np.random.default_rng(6).integers(-999, 999, n)
+               .astype(np.int32), None, "a")
+        x = mk(np.random.default_rng(7).standard_normal(n),
+               np.random.default_rng(8).random(n) < 0.1, "x")
+        q = mk(np.random.default_rng(9).integers(-2**40, 2**40, n), None,
+               "q")
+        st = gdf.gpu_comparison_static_i64(k, m // 2, "lt")
+        kept = [gdf.gpu_apply_stencil(col, st) for col in (k, a, x, q)]
+        dk = mk(np.random.default_rng(3).permutation(m), None, "k")
+        dw = mk(np.random.default_rng(4).integers(0, 9, m), None, "w")
+        joined = gdf.gdf_inner_join(kept, 4, [0], [dk, dw], 2, [0], 1)
+        by = {col.name: col for col in joined}
+        keys, tot = gdf.gdf_group_by_sum(1, [by["k"]], by["x"])
+        _, tot_i = gdf.gdf_group_by_sum(1, [by["k"]], by["q"])
+        _, top = gdf.gdf_group_by_max(1, [by["k"]], by["q"])
+        order = gdf.gdf_order_by([by["w"], by["k"]], 2)
+        plan = gdf.gdf_radixsort_plan(joined[0].size, True, 8, 24)
+        gdf.gdf_radixsort_plan_setup(plan)
+        sk, sv = gdf.gdf_radixsort_i32(plan, by["a"], by["q"])
+        ps = gdf.gdf_prefixsum_i64(by["q"].with_valid(None))
+        csr = gdf.gdf_to_csr([by["x"], by["x"]])
+        res.append((kept + joined + keys + [tot_i, top, order, sk, sv, ps],
+                    tot, csr))
+    (gcols, gtot, gcsr), (ccols, ctot, ccsr) = res
+    for g, c in zip(gcols, ccols):
+        _abi_same(g, c)
+    _abi_same(gtot, ctot, rtol=1e-11)
+    assert int(gcsr.nnz) == int(ccsr.nnz)
+    for f in ("A", "IA", "JA"):
+        torch.testing.assert_close(getattr(gcsr, f).cpu(), getattr(ccsr, f),
+                                   rtol=0, atol=0)
+    # the join's build keys are unique, so it needs no expand_fill
+    counts = kernels.launch_counts()
+    for name in ("compact", "scan[int32]", "scan[int64]", "seg_scan[int64]",
+                 "seg_scan[float64]"):
+        assert counts.get(name, 0) > 0, name
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int32, np.int64])
+def test_integer_floordiv_by_zero_on_the_card(dev, dtype):
+    from libgdf_tpu_torch.compat import gdf
+    lo, hi = np.iinfo(dtype).min, np.iinfo(dtype).max
+    a = np.array([5, -5, 0, lo, hi, lo, hi, 7, -7, lo, 1], dtype)
+    b = np.array([0, 0, 0, 0, 0, -1, -1, 2, 2, 1, -1], dtype)
+    (ga, ca), (gb, cb) = _views(gdf, a), _views(gdf, b)
+    got = gdf.gdf_floordiv_generic(ga, gb)
+    _abi_same(got, gdf.gdf_floordiv_generic(ca, cb))
+    assert got.data[:3].tolist() == [-2, -2, -1]
+
+
+def test_float_division_edge_cases_on_the_card(dev):
+    from libgdf_tpu_torch.compat import gdf
+    a = np.array([5., -5., 0., 7.5, -7.5, np.inf, 1., np.nan, 6.])
+    b = np.array([0., 0., 0., 2., 2., 3., np.inf, 1., -0.])
+    (ga, ca), (gb, cb) = _views(gdf, a), _views(gdf, b)
+    got = gdf.gdf_floordiv_f64(ga, gb)
+    _abi_same(got, gdf.gdf_floordiv_f64(ca, cb))
+    assert torch.isnan(got.data[:2]).all()
+    (gi, ci), (gj, cj) = _views(gdf, np.arange(-3, 4)), \
+        _views(gdf, np.array([2, 0, 3, 0, 5, 0, 7]))
+    got = gdf.gdf_div_generic(gi, gj)
+    assert got.data.dtype == torch.float64
+    _abi_same(got, gdf.gdf_div_generic(ci, cj))
+
+
+@pytest.mark.parametrize("src", [np.float32, np.float64])
+def test_float_to_integer_casts_saturate_on_the_card(dev, src):
+    from libgdf_tpu_torch.compat import gdf
+    x = np.array([np.nan, np.inf, -np.inf, 3e10, -3e10, 300.7, -300.7,
+                  127.5, 128.0, -128.5, -129.0, 2147483520.0, 2147483648.0,
+                  -2147483904.0, 9.2e18, 9.3e18, -9.3e18, 1e38, 0.5, -0.0],
+                 src)
+    gx, cx = _views(gdf, x)
+    sfx = "f32" if src == np.float32 else "f64"
+    for to in ("i8", "i32", "i64", "date32", "timestamp"):
+        fn = getattr(gdf, f"gdf_cast_{sfx}_to_{to}")
+        _abi_same(fn(gx), fn(cx))
+    got = getattr(gdf, f"gdf_cast_{sfx}_to_i32")(gx).data[:5].tolist()
+    assert got == [0, 2147483647, -2147483648, 2147483647, -2147483648]
+
+
+def test_read_csv_lands_on_the_card(dev, tmp_path):
+    from libgdf_tpu_torch.compat import gdf
+    from libgdf_tpu_torch.io import CSVReadArg
+    p = tmp_path / "t.csv"
+    p.write_text("0,0.0,10,a\n1,1.5,,b\n2,-2.25,30,\n3,,40,a\n,4.75,50,c\n")
+    kw = dict(file_path=str(p), names=["a", "b", "c", "s"],
+              dtype=["int32", "float64", "int64", "str"])
+    arg = CSVReadArg(**kw)
+    t = gdf.read_csv(arg)
+    c = gdf.read_csv(CSVReadArg(**kw), device="cpu")
+    assert t.device.type == "cuda" and arg.scanner in ("native", "python")
+    for g, w in zip(t.columns, c.columns):
+        _abi_same(g, w)
+    assert t.categories == c.categories == {"s": ["a", "b", "c"]}
+
+
+def test_nvtx_range_seen_in_a_profile(dev):
+    from torch.profiler import ProfilerActivity, profile
+    from libgdf_tpu_torch.compat import gdf
+    a = gdf.gdf_column_view(np.arange(1000))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        gdf.gdf_nvtx_range_push("LIBGDF_TEST_RANGE", "green")
+        gdf.gdf_add_i64(a, a)
+        torch.cuda.synchronize()
+        gdf.gdf_nvtx_range_pop()
+    gdf.gdf_nvtx_range_pop()
+    assert any(e.key == "LIBGDF_TEST_RANGE" for e in prof.key_averages())
+
+
+def test_rmm_on_the_card(dev):
+    from libgdf_tpu_torch import memory as rmm
+    rmm.rmmInitialize()
+    try:
+        h = rmm.rmmAlloc(8, dtype=np.int32)
+        assert rmm.rmmGetArray(h).is_cuda
+        rmm.rmmGetArray(h).copy_(torch.arange(8, dtype=torch.int32))
+        rmm.rmmRealloc(h, 16)
+        assert rmm.rmmGetArray(h).is_cuda
+        assert rmm.rmmGetArray(h).tolist() == list(range(8)) + [0] * 8
+        arr = rmm.to_device(np.arange(10))
+        assert arr.is_cuda and arr.tolist() == list(range(10))
+        rmm.rmmFree(h)
+        free, total = rmm.rmmGetInfo()
+        assert (free, total)[1] == torch.cuda.mem_get_info()[1] and free > 0
+        lines = rmm.rmmGetLog().strip().splitlines()
+        assert [ln.split(",")[0] for ln in lines[1:]] == \
+            ["Alloc", "Realloc", "Alloc", "Free"]
+        assert all(int(ln.split(",")[6]) == total for ln in lines[1:])
+    finally:
+        rmm.rmmFinalize()
+
+
+@pytest.mark.parametrize("p", [0.0, 0.4, 1.0])
+def test_compaction_indices_on_the_card(dev, p):
+    from libgdf_tpu_torch.ops.compaction import compaction_indices
+    rng = np.random.default_rng(11)
+    keep = rng.random(1_000_003) < p
+    perm, count = compaction_indices(torch.as_tensor(keep, device=dev))
+    assert int(count) == int(keep.sum())
+    want = np.concatenate([np.flatnonzero(keep), np.flatnonzero(~keep)])
+    assert np.array_equal(perm.cpu().numpy(), want)
