@@ -64,7 +64,28 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    path: H1, H2 at int32 and int64, H3 at int64 and float64, H4). Each
    operator is timed on the host clock ending in a device sync, and each
    result is held to the same code run on CPU tensors.
-7. Prints a JSON line of the operators, one of the kernels, the card line,
+7. Drives the distributed path at P = 8 in-process shards on the one card
+   (libgdf_tpu_torch.parallel, one thread per shard), at the shape of
+   benchmarks/dist_bench.py: a 10M-row fact table (Zipf(1.3) keys mod
+   100,000 as int64, a standard-normal float32 value) and a dimension of
+   the 100,000 keys with a float32 weight, distributed over the mesh;
+   detect_skew over 8 bins; then, each with num_batches=2 and sum + count
+   aggregates, three variants of map_shards filter (v > -1) -> join ->
+   dist_groupby on k: plain (dist_join with the slot capacity of
+   exact_slot_capacity and out_capacity_per_shard = 4 x rows per shard),
+   salted (plan_salted_join with threshold 3, dist_join_salted) and
+   broadcast (broadcast_join). Each variant is planned in a first pass
+   (the groupby's slot from exact_groupby_slot_capacity on the join's
+   output) and timed in a second. It prints rows/s per variant (and on
+   one shard over the same rows), skew_max_over_mean, groups out, the slot
+   capacities, the host time in the communicator's calls as a share of
+   the variant, peak device memory, the launches, and the device's busy
+   share of the path from a torch.profiler trace; compact and seg_scan
+   must launch. Each variant,
+   collected and sorted by key, is held to the single-table filter_table ->
+   join -> groupby on the card; and the same distributed pipeline at 1M
+   rows runs on the card and on 8 CPU shards, held shard by shard.
+8. Prints a JSON line of the operators, one of the kernels, the card line,
    and last {"ok": true, "device": {...}}.
 
 Tolerances: integers, counts, validity, quantiles, window minima and
@@ -81,7 +102,10 @@ datetime fields, hashes, sort outputs, CSR arrays and CSV columns exact;
 float32 products exact; sqrt rtol 1e-12; float64 group sums within 1e-12 of
 the group's sum of |x| (averages: of that over the group's count); the
 float64 reduction within 1e-12 of the sum of |x|; the window sums within
-2e-12 of the column's sum of |v|.
+2e-12 of the column's sum of |v|. On the distributed path: keys, counts,
+per-shard counts, capacities and row order exact; a group's float32 sum
+within 2e-4 of the group's sum of |v|, plus 1e-4 (the shards add their
+partial sums in another order than one table does).
 """
 import json
 import os
@@ -94,6 +118,7 @@ import numpy as np
 import torch
 
 from libgdf_tpu_torch import Column, GDFError, Table, TimeUnit, ops
+from libgdf_tpu_torch import parallel as par
 from libgdf_tpu_torch.compat import gdf
 from libgdf_tpu_torch.io import CSVReadArg
 from libgdf_tpu_torch.ops import kernels
@@ -134,6 +159,10 @@ ANALYTIC_KERNELS = ("scan[int64]", "scan[float64]", "seg_scan[int32]")
 ABI_KERNELS = ("compact", "scan[int32]", "scan[int64]", "seg_scan[int64]",
                "seg_scan[float64]", "expand_fill")
 N_CSV, N_CSR, N_SEGMENTS, N_PARTS = 1_000_000, 2_500_000, 10_000, 64
+N_DIST, N_DIST_CPU, DIST_P, DIST_KEYS = 10_000_000, 1_000_000, 8, 100_000
+DIST_AGGS = [("v", "sum", "s"), ("v", "count", "c")]
+DIST_BATCHES = 2
+DIST_KERNELS = ("compact", "seg_scan")
 # __global__ functions of libgdf_tpu_torch/csrc/*.cu, by wrapper
 # (H2 and H3 are instances of one template)
 KERNEL_NAMES = {"compact": ("compact_lookback",),
@@ -902,6 +931,128 @@ def run_abi_path(data, device):
     return out, times, c
 
 
+# -- the distributed path ---------------------------------------------------
+
+def make_dist_data(n, seed=0):
+    """The distributed path's inputs as numpy: (fact, dimension), as
+    benchmarks/dist_bench.py draws them."""
+    rng = np.random.default_rng(seed)
+    fact = {"k": rng.zipf(1.3, n).astype(np.int64) % DIST_KEYS,
+            "v": rng.standard_normal(n).astype(np.float32)}
+    dim = {"k": np.arange(DIST_KEYS, dtype=np.int64),
+           "w": rng.random(DIST_KEYS).astype(np.float32)}
+    return fact, dim
+
+
+def dist_filter(local):
+    return ops.filter_table(local, ops.compare_scalar(local["v"], -1.0, "gt"))
+
+
+def run_dist_path(data, device, shards=DIST_P):
+    """The distributed pipeline at `shards` in-process shards on `device`;
+    returns (results, per-variant timings). Each variant is planned in a
+    first pass and timed in a second that ends in a device sync; rows are
+    the fact table's."""
+    fact, dim = data
+    n = fact["k"].shape[0]
+    sync = (lambda: torch.cuda.synchronize(device)) \
+        if device.type == "cuda" else (lambda: None)
+    mesh = par.make_mesh(shards, device=device)
+    sf = par.distribute(Table.from_dict(fact, device=device), mesh)
+    sd = par.distribute(Table.from_dict(dim, device=device), mesh)
+    hist, _ = par.detect_skew(mesh, sf, ["k"], num_bins=DIST_P)
+    out = {"skew_max_over_mean": float(hist.max() / max(hist.mean(), 1.0))}
+    slot_join = par.exact_slot_capacity(mesh, [(sf, ["k"]), (sd, ["k"])],
+                                        num_batches=DIST_BATCHES)
+    filtered = par.map_shards(mesh, dist_filter, sf)
+    plan = par.plan_salted_join(mesh, filtered, sd, ["k"], ["k"],
+                                how="inner", threshold=3.0)
+    joins = {
+        "plain": lambda f: par.dist_join(
+            mesh, f, sd, ["k"], ["k"], how="inner", slot_capacity=slot_join,
+            out_capacity_per_shard=4 * (sf.capacity // shards),
+            num_batches=DIST_BATCHES),
+        "salted": lambda f: par.dist_join_salted(mesh, f, sd, ["k"], ["k"],
+                                                 plan=plan),
+        "broadcast": lambda f: par.broadcast_join(mesh, f, sd, ["k"], ["k"]),
+    }
+    times = {}
+    for name, join in joins.items():
+        slot_gb = par.exact_groupby_slot_capacity(
+            mesh, join(filtered), ["k"], DIST_AGGS, num_batches=DIST_BATCHES)
+        sync()
+        mesh.exchange.reset()
+        t0 = time.perf_counter()
+        g = par.dist_groupby(mesh, join(par.map_shards(mesh, dist_filter,
+                                                       sf)),
+                             ["k"], DIST_AGGS, slot_capacity=slot_gb,
+                             num_batches=DIST_BATCHES)
+        sync()
+        secs = time.perf_counter() - t0
+        times[f"dist_{name}"] = (n, secs)
+        out[name] = dict(result=g, groups=int(g.total_rows()),
+                         slot_groupby=slot_gb,
+                         exchange_share=mesh.exchange.seconds / shards / secs,
+                         exchange_calls=mesh.exchange.calls)
+    out["plain"]["slot_join"] = slot_join
+    out["salted"]["slot_join"] = plan.slot_capacity
+    out["salted"]["hot_capacity_per_shard"] = plan.hot_capacity_per_shard
+    out["salted"]["hot_bins"] = int(plan.hot.sum())
+    return out, times
+
+
+def dist_reference(data, device):
+    """The single-table pipeline on the same data: (groupby of
+    filter_table -> join, each group's sum of |v|), both by key."""
+    fact, dim = data
+    ft = Table.from_dict(fact, device=device)
+    j = ops.join(dist_filter(ft), Table.from_dict(dim, device=device),
+                 ["k"], ["k"], how="inner")
+    g = ops.groupby(j, ["k"], DIST_AGGS).compact()
+    absv = j.replace_column("v", j["v"].with_data(j["v"].data.abs()))
+    a = ops.groupby(absv, ["k"], [("v", "sum", "s")]).compact()
+    return g, a["s"].data.double()
+
+
+def check_dist_against(got, want, abs_by_key, what):
+    """Keys and counts exact, float32 sums within 2e-4 of the group's sum
+    of |v| plus 1e-4; returns the largest sum error."""
+    exact(got["k"].data.cpu(), want["k"].data.cpu(), f"{what} keys")
+    exact(got["c"].data.cpu(), want["c"].data.cpu(), f"{what} counts")
+    bound = 2e-4 * abs_by_key[got["k"].data.cpu().long()] + 1e-4
+    return close(got["s"].data.cpu().double(), want["s"].data.cpu().double(),
+                 bound, f"{what} sums")
+
+
+def check_dist_path(res, ref, absref, what):
+    """Every variant, collected and sorted by key, against the single-table
+    pipeline."""
+    abs_by_key = torch.zeros(DIST_KEYS, dtype=torch.float64)
+    abs_by_key[ref["k"].data.cpu().long()] = absref.cpu()
+    err = 0.0
+    for name in ("plain", "salted", "broadcast"):
+        got = ops.sort_table(par.collect(res[name]["result"]), ["k"])
+        if got.capacity != ref.capacity or res[name]["groups"] <= 0:
+            fail(f"{what} {name}: {got.capacity} groups vs {ref.capacity}")
+        err = max(err, check_dist_against(got, ref, abs_by_key,
+                                          f"{what} {name}"))
+    return err, abs_by_key
+
+
+def check_dist_shards(gpu, cpu, abs_by_key):
+    """The card's run against the CPU run, shard by shard: capacity,
+    per-shard counts and the live rows in order."""
+    for name in ("plain", "salted", "broadcast"):
+        g, c = gpu[name]["result"], cpu[name]["result"]
+        if g.capacity != c.capacity or g.counts.tolist() != c.counts.tolist():
+            fail(f"dist {name}: capacity or per-shard counts differ")
+        for s, (gs, cs) in enumerate(zip(g.shards, c.shards)):
+            k = int(c.counts[s])
+            check_dist_against(gs.with_num_rows(k).compact(),
+                               cs.with_num_rows(k).compact(), abs_by_key,
+                               f"dist {name} shard {s}")
+
+
 def close(got, want, bound, what):
     """|got - want| <= bound elementwise (NaN equals NaN); max error."""
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -1178,21 +1329,74 @@ def main():
     del bgpu, bcpu, c_cpu, bdata
     check_nvtx_range(dev)
 
+    t0 = time.perf_counter()
+    ddata = make_dist_data(N_DIST, 0)
+    print(f"distributed data {time.perf_counter() - t0:.1f} s", flush=True)
+    (dgpu, dtimes), dlaunches = drive("distributed", run_dist_path, ddata,
+                                      dev, card)
+    missing = [k for k in DIST_KERNELS if dlaunches.get(k, 0) == 0]
+    if missing:
+        fail(f"distributed path launched no {missing}")
+    print(f"distributed path: seg_scan dtypes "
+          f"{sorted(k for k in dlaunches if k.startswith('seg_scan['))}, "
+          f"expand_fill {dlaunches['expand_fill']} (the local joins' "
+          f"general path runs only on repeated build keys)", flush=True)
+    print(f"dist skew_max_over_mean={dgpu['skew_max_over_mean']:.4f} "
+          f"(detect_skew, {DIST_P} bins)", flush=True)
+    for name in ("plain", "salted", "broadcast"):
+        r = dgpu[name]
+        rows, secs = dtimes[f"dist_{name}"]
+        print(f"dist {name}: rows={rows} seconds={secs:.6f} rows_per_s="
+              f"{rows / secs:.4e} groups={r['groups']} " + " ".join(
+                  f"{k}={v}" for k, v in r.items()
+                  if k not in ("result", "groups")) + f" ({card})",
+              flush=True)
+    # the same 10M rows on one shard, and the device's busy share of the
+    # path at DIST_P shards
+    for _ in range(2):
+        _, one = run_dist_path(ddata, dev, shards=1)
+    print("dist on one shard: " + " ".join(
+        f"{k}_rows_per_s={rows / secs:.4e}" for k, (rows, secs)
+        in one.items()) + f" ({card})", flush=True)
+    wall, busy, own, nk, top = profile_op(
+        lambda: run_dist_path(ddata, dev))
+    print(f"profile distributed path: wall_us={wall:.1f} device_busy_us="
+          f"{busy:.1f} share={busy / wall:.4f} own_kernels_us={own:.1f} "
+          f"kernels={nk} top={top} ({card})", flush=True)
+    t0 = time.perf_counter()
+    ref, absref = dist_reference(ddata, dev)
+    err, _ = check_dist_path(dgpu, ref, absref, "dist 10M")
+    print(f"distributed path: the three variants at {N_DIST} rows match the "
+          f"single-table pipeline on the card (sum error {err}; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    del dgpu, ref, absref, ddata
+    t0 = time.perf_counter()
+    small = make_dist_data(N_DIST_CPU, 1)
+    sgpu, _ = run_dist_path(small, dev)
+    scpu, _ = run_dist_path(small, torch.device("cpu"))
+    print(f"distributed path at {N_DIST_CPU} rows, card and cpu "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ref, absref = dist_reference(small, torch.device("cpu"))
+    _, abs_by_key = check_dist_path(scpu, ref, absref, "dist 1M cpu")
+    check_dist_shards(sgpu, scpu, abs_by_key)
+    print("distributed path: GPU results at 1M rows match the CPU run shard "
+          "by shard", flush=True)
+    del sgpu, scpu, small
+
     pipeline = {op: {"rows_in": rows, "seconds": secs,
                      "rows_per_s": rows / secs}
-                for op, (rows, secs) in {**times, **atimes, **btimes}.items()}
+                for op, (rows, secs) in {**times, **atimes, **btimes,
+                                         **dtimes}.items()}
     print(json.dumps({"pipeline": pipeline, "card": card}), flush=True)
+    paths = {"main": launches, "analytic": alaunches, "abi": blaunches,
+             "distributed": dlaunches}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
-         "launches": launches[name] + alaunches[name] + blaunches[name],
+         "launches": sum(p[name] for p in paths.values()),
          "launches_by_path": {
-             "main": {k: v for k, v in launches.items()
-                      if k.split("[")[0] == name},
-             "analytic": {k: v for k, v in alaunches.items()
-                          if k.split("[")[0] == name},
-             "abi": {k: v for k, v in blaunches.items()
-                     if k.split("[")[0] == name}},
+             path: {k: v for k, v in p.items() if k.split("[")[0] == name}
+             for path, p in paths.items()},
          **{k: v for k, v in stats[name].items() if k != "shape"}}
         for name in SOURCES]}), flush=True)
     print(card, flush=True)

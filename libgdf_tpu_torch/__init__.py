@@ -16,6 +16,8 @@ Layout (mirrors libgdf_tpu):
   io/           CSV ingest, Arrow IPC, CSR conversion
   memory/       the RMM surface: handles over tensors, CSV event log
   native/       ctypes binding to the host CSV scanner (g++ at first use)
+  parallel/     mesh of row shards, sharded tables, shuffles, distributed
+                operators (in-process threads or torch.distributed)
   compat/       the flat gdf_* / gpu_* / rmm* ABI surface
   utils/        tracing ranges, per-operator metrics
   interop.py    numpy <-> Table

@@ -40,6 +40,18 @@ def flush_float_keys(data: torch.Tensor) -> torch.Tensor:
     return torch.where(zero, torch.zeros_like(data), data)
 
 
+def flush_denormals(data: torch.Tensor) -> torch.Tensor:
+    """A denormal is zero, as on the TPU: every |x| < finfo(dtype).tiny of
+    a float tensor becomes a zero of its own sign; other dtypes pass
+    through. XLA flushes the denormal inputs of comparisons, casts,
+    min / max, floor-division and sqrt / floor / ceil / log, on the TPU
+    and on the CPU alike; torch does not, on the CPU or the card."""
+    if not data.is_floating_point():
+        return data
+    return torch.where(data.abs() < torch.finfo(data.dtype).tiny, data * 0,
+                       data)
+
+
 _MASK = {1: 0xFF, 2: 0xFFFF, 4: 0xFFFFFFFF}
 _SAME_WIDTH_INT = {1: torch.int8, 2: torch.int16, 4: torch.int32}
 

@@ -17,13 +17,20 @@ operator would answer otherwise:
   - `div` of two integer columns is float64 if either is int64, else
     float32 (torch divides int64 in float32);
   - a float -> integer cast saturates at the target's range and maps NaN
-    to 0 (XLA's convert; torch's is undefined out of range).
+    to 0 (XLA's convert; torch's is undefined out of range);
+  - a denormal float is zero (`core/bits.py::flush_denormals`) on the
+    inputs of the comparisons, float <-> float casts (and their outputs),
+    floor-division and sqrt / floor / ceil / log, so row sets and integral
+    results do not depend on it. add / sub / mul / div keep torch's
+    denormals: flushing their results would cost a pass per call and
+    change no row set.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.bitmask import mask_and
+from ..core.bits import flush_denormals
 from ..core.column import Column
 from ..core.dtypes import DtypeInfo, GDFDtype, TimeUnit, dtype_from_numpy
 from ..core.errors import GDFError, GDFStatus, require
@@ -38,6 +45,8 @@ _UNARY_FNS = {
     "exp": torch.exp, "log": torch.log, "sqrt": torch.sqrt,
     "ceil": torch.ceil, "floor": torch.floor,
 }
+# where a denormal input changes the result past its last bits
+_FLUSHED_UNARY = ("log", "sqrt", "ceil", "floor")
 
 
 def unary_op(col: Column, op: str) -> Column:
@@ -48,7 +57,8 @@ def unary_op(col: Column, op: str) -> Column:
             f"unknown unary op {op!r}")
     require(col.info.is_floating, GDFStatus.GDF_UNSUPPORTED_DTYPE,
             f"{op} requires FLOAT32/FLOAT64")
-    return col.with_data(_UNARY_FNS[op](col.data))
+    data = flush_denormals(col.data) if op in _FLUSHED_UNARY else col.data
+    return col.with_data(_UNARY_FNS[op](data))
 
 
 def sin(c): return unary_op(c, "sin")
@@ -123,6 +133,9 @@ def cast(col: Column, to: GDFDtype,
         else:
             out = torch.div(wide, f // t, rounding_mode="floor")
         out = out.to(to_info.physical)
+    elif col.data.is_floating_point() and to_info.physical.is_floating_point \
+            and col.data.dtype != to_info.physical:
+        out = flush_denormals(flush_denormals(col.data).to(to_info.physical))
     else:
         out = convert(col.data, to_info.physical)
     return Column(data=out, valid=col.valid, info=to_info, name=col.name)
@@ -141,6 +154,7 @@ def _floordiv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = _promote(a, b)
     if a.is_floating_point():
         # CPython's float_divmod, as jnp.floor_divide
+        a, b = flush_denormals(a), flush_denormals(b)
         mod = torch.fmod(a, b)
         div = (a - mod) / b
         adjust = (mod != 0) & (torch.sign(b) != torch.sign(mod))
@@ -222,6 +236,12 @@ def compare_scalar(col: Column, value, op) -> Column:
     data = col.data
     if isinstance(value, float) and not data.is_floating_point():
         data = data.to(torch.float64)
+    if data.is_floating_point():
+        data = flush_denormals(data)
+        if not isinstance(value, torch.Tensor):
+            # the scalar as the column's dtype, flushed on the host
+            value = flush_denormals(torch.tensor(value,
+                                                 dtype=data.dtype)).item()
     out = _CMP[op](data, value).to(torch.int8)
     return Column(data=out, valid=col.valid, info=_INT8, name=col.name)
 
@@ -231,6 +251,7 @@ def compare(a: Column, b: Column, op) -> Column:
     (≅ gpu_comparison, filterops.cu:162-260)."""
     op = _CMP_ENUM[op]
     require(a.size == b.size, GDFStatus.GDF_COLUMN_SIZE_MISMATCH)
-    out = _CMP[op](a.data, b.data).to(torch.int8)
+    out = _CMP[op](flush_denormals(a.data),
+                   flush_denormals(b.data)).to(torch.int8)
     return Column(data=out, valid=mask_and(a.valid, b.valid), info=_INT8,
                   name=a.name)

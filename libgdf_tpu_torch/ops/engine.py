@@ -18,13 +18,15 @@ import torch
 from .kernels import scan, seg_scan
 
 
-def multi_sort(operands: Sequence[torch.Tensor], num_keys: int):
+def multi_sort(operands: Sequence[torch.Tensor], num_keys: int,
+               stable: bool = True):
     """Stable lexicographic sort by the first `num_keys` operands; every
     operand is permuted consistently.
 
     Stable torch.sort passes run from the least significant key to the
     most significant one, then the permutation gathers each operand
-    (≅ jax.lax.sort with num_keys, is_stable=True)."""
+    (≅ jax.lax.sort with num_keys, is_stable=True). The sort is always
+    stable; `stable` is accepted for the JAX package's signature."""
     perm = None
     for key in reversed(operands[:num_keys]):
         k = key if perm is None else key[perm]
@@ -33,6 +35,17 @@ def multi_sort(operands: Sequence[torch.Tensor], num_keys: int):
         _, idx = torch.sort(k, stable=True)
         perm = idx if perm is None else perm[idx]
     return [op[perm] for op in operands]
+
+
+def argsort_keys(keys: Sequence[torch.Tensor],
+                 payloads: Sequence[torch.Tensor] = ()):
+    """multi_sort of keys + iota + payloads; returns (sorted_keys, perm,
+    sorted_payloads)."""
+    keys = tuple(keys)
+    iota = torch.arange(keys[0].shape[0], dtype=torch.int32,
+                        device=keys[0].device)
+    out = multi_sort(keys + (iota,) + tuple(payloads), num_keys=len(keys))
+    return out[:len(keys)], out[len(keys)], out[len(keys) + 1:]
 
 
 # Sum dtypes H2 has no instance for -> the instance they run at; the sum

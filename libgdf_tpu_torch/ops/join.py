@@ -352,6 +352,15 @@ def join(left: Table, right: Table, left_on: Sequence[str],
     gathered by the index columns, -1 giving NULL."""
     l_idx, r_idx, count = join_indices(left, right, left_on, right_on, how,
                                        out_capacity)
+    return join_output(left, right, left_on, right_on, how, l_idx, r_idx,
+                       count, suffixes)
+
+
+def join_output(left: Table, right: Table, left_on, right_on, how: str,
+                l_idx: torch.Tensor, r_idx: torch.Tensor, count,
+                suffixes=("_x", "_y")) -> Table:
+    """The materialized table of `join` from its index columns (the
+    output's capacity is theirs, its num_rows `count`)."""
     cols = []
     for lname, rname in zip(left_on, right_on):
         lcol = left.column(lname)

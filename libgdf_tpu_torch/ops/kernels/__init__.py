@@ -3,14 +3,16 @@
 Counterpart of `libgdf_tpu/ops/pallas/`. Each wrapper runs its plain
 PyTorch version on CPU tensors and launches its kernel on CUDA tensors,
 and counts its launches in a plain int attribute, `launches`; the scans
-also count them per value dtype (`launches_by_dtype`).
+also count them per value dtype (`launches_by_dtype`). The counts change
+only under one lock (`_lib.count_launch`), so they stay exact when
+several threads launch at once.
 
   H1 compact      compact.py  <- pallas/compact.py, pallas/compact2.py
   H2 scan         scan.py     <- pallas/scan.py (value scans)
   H3 seg_scan     scan.py     <- pallas/scan.py (pair, 64-bit, f64, sel64)
   H4 expand_fill  expand.py   <- pallas/expand.py
 """
-from ._lib import build
+from ._lib import COUNT_LOCK, build, count_launch, reset_counts
 from .compact import compact, compact_plain
 from .expand import SENTINEL, expand_fill, expand_fill_plain
 from .scan import scan, scan_plain, seg_scan, seg_scan_plain
@@ -22,22 +24,22 @@ WRAPPERS = {"compact": compact, "scan": scan, "seg_scan": seg_scan,
 def launch_counts() -> dict:
     """{wrapper: launches}, plus {"wrapper[dtype]": launches} for each
     value dtype a scan has launched at since the last reset."""
-    counts = {name: fn.launches for name, fn in WRAPPERS.items()}
-    for name, fn in WRAPPERS.items():
-        for dt, k in getattr(fn, "launches_by_dtype", {}).items():
-            counts[f"{name}[{dt}]"] = k
+    with COUNT_LOCK:
+        counts = {name: fn.launches for name, fn in WRAPPERS.items()}
+        for name, fn in WRAPPERS.items():
+            for dt, k in getattr(fn, "launches_by_dtype", {}).items():
+                counts[f"{name}[{dt}]"] = k
     return counts
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
-        fn.launches = 0
-        if hasattr(fn, "launches_by_dtype"):
-            fn.launches_by_dtype = {}
+        reset_counts(fn)
 
 
 __all__ = [
-    "build", "compact", "compact_plain", "scan", "scan_plain", "seg_scan",
-    "seg_scan_plain", "expand_fill", "expand_fill_plain", "SENTINEL",
-    "WRAPPERS", "launch_counts", "reset_launch_counts",
+    "build", "count_launch", "compact", "compact_plain", "scan",
+    "scan_plain", "seg_scan", "seg_scan_plain", "expand_fill",
+    "expand_fill_plain", "SENTINEL", "WRAPPERS", "launch_counts",
+    "reset_launch_counts",
 ]

@@ -51,6 +51,7 @@ _SIGNATURES = {
 
 _LOCK = threading.Lock()
 _LIB = None
+COUNT_LOCK = threading.Lock()
 
 
 def sources() -> list:
@@ -121,6 +122,25 @@ def lib() -> ctypes.CDLL:
                 fn.argtypes = args
             _LIB = so
         return _LIB
+
+
+def count_launch(wrapper, dtype: torch.dtype | None = None) -> None:
+    """Add one to `wrapper.launches` and, given a dtype, to its count in
+    `wrapper.launches_by_dtype`, under a lock: the shards of an in-process
+    mesh launch from one thread each."""
+    with COUNT_LOCK:
+        wrapper.launches += 1
+        if dtype is not None:
+            key = str(dtype).removeprefix("torch.")
+            by = wrapper.launches_by_dtype
+            by[key] = by.get(key, 0) + 1
+
+
+def reset_counts(wrapper) -> None:
+    with COUNT_LOCK:
+        wrapper.launches = 0
+        if hasattr(wrapper, "launches_by_dtype"):
+            wrapper.launches_by_dtype = {}
 
 
 def check(err: int, what: str) -> None:

@@ -65,7 +65,7 @@ def compact(arrays, keep: torch.Tensor):
                 _lib.int_array([a.element_size() for a in ins]),
                 count.data_ptr(), scratch.data_ptr(), scratch.shape[0],
                 stream), "compact")
-    compact.launches += 1
+    _lib.count_launch(compact)
     return outs, count
 
 

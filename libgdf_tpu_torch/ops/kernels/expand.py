@@ -62,7 +62,7 @@ def expand_fill(pos: torch.Tensor, words, cap: int):
                 _lib.pointer_array(ins), _lib.pointer_array(chunk),
                 _lib.int_array([w.element_size() for w in ins]), stream),
                 "expand_fill")
-    expand_fill.launches += 1
+    _lib.count_launch(expand_fill)
     return outs
 
 

@@ -99,14 +99,8 @@ def scan(kind: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
                            out.data_ptr(), n, scratch.data_ptr(),
                            scratch.shape[0], _lib.stream_ptr(dev))
     _lib.check(err, "scan")
-    _count(scan, x.dtype)
+    _lib.count_launch(scan, x.dtype)
     return out
-
-
-def _count(wrapper, dtype: torch.dtype) -> None:
-    wrapper.launches += 1
-    key = str(dtype).removeprefix("torch.")
-    wrapper.launches_by_dtype[key] = wrapper.launches_by_dtype.get(key, 0) + 1
 
 
 scan.launches = 0
@@ -139,7 +133,7 @@ def seg_scan(kind: str, flags: torch.Tensor, vals: torch.Tensor):
                                scratch.data_ptr(), scratch.shape[0],
                                _lib.stream_ptr(dev))
     _lib.check(err, "seg_scan")
-    _count(seg_scan, vals.dtype)
+    _lib.count_launch(seg_scan, vals.dtype)
     return out
 
 

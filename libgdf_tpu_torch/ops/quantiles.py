@@ -4,7 +4,8 @@ Counterpart of `libgdf_tpu/ops/quantiles.py` (≅ gdf_quantile_exact,
 libgdf/src/quantiles.cu:83-244, include/quantiles.hpp:32-158, and
 gdf_quantile_aprrox, functions.h:782). One stable sort of (NULL flag,
 value) puts NULL rows last; the quantile is read at q * (n_valid - 1).
-Results are 0-d tensors on the column's device; nothing here syncs.
+Results are 0-d tensors on the column's device; nothing here syncs. A
+quantile of an empty column raises GDFError.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ METHODS = ("linear", "lower", "higher", "midpoint", "nearest")
 
 def _sorted_valid(col: Column):
     """(values sorted with NULL rows last, number of valid rows)."""
+    require(col.size > 0, GDFStatus.GDF_DATASET_EMPTY,
+            "quantile of an empty column")
     flag = (torch.zeros(col.size, dtype=torch.uint8, device=col.device)
             if col.valid is None else (~col.valid).to(torch.uint8))
     _, svals = multi_sort([flag, col.data], num_keys=2)

@@ -7,8 +7,10 @@ functions.h). NULL rows are replaced by the op's identity, then one torch
 reduction runs, as the JAX package leaves it to one XLA reduction. Result
 dtypes are the JAX package's: integer sums and products in int64 (the
 square of sum_of_squares is taken in the column's dtype first, as there),
-min and max in the column's dtype, floats in their own dtype. Results are
-0-d tensors on the column's device; nothing here syncs.
+min and max in the column's dtype, floats in their own dtype. Float min
+and max are XLA's: a denormal is zero (core/bits.py::flush_denormals) and
+-0.0 orders below +0.0. Results are 0-d tensors on the column's device;
+nothing here syncs. The min or max of an empty column raises GDFError.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import math
 
 import torch
 
+from ..core.bits import flush_denormals
 from ..core.column import Column
 from ..core.errors import GDFStatus, require
 
@@ -49,7 +52,19 @@ def reduce(col: Column, op: str) -> torch.Tensor:
         return torch.sum(x, dtype=wide)
     if op == "product":
         return torch.prod(x, dtype=wide)
-    return torch.amin(x) if op == "min" else torch.amax(x)
+    require(x.shape[0] > 0, GDFStatus.GDF_DATASET_EMPTY,
+            f"{op} of an empty column")
+    if not x.is_floating_point():
+        return torch.amin(x) if op == "min" else torch.amax(x)
+    x = flush_denormals(x)
+    out = torch.amin(x) if op == "min" else torch.amax(x)
+    # torch leaves the sign of a zero result to the order of the rows
+    zero = x == 0
+    if op == "min":
+        signed = torch.where((zero & torch.signbit(x)).any(), -0.0, 0.0)
+    else:
+        signed = torch.where((zero & ~torch.signbit(x)).any(), 0.0, -0.0)
+    return torch.where(out == 0, signed.to(out.dtype), out)
 
 
 def sum(col: Column):

@@ -18,10 +18,10 @@ from libgdf_tpu_torch.ops import kernels
 
 pytestmark = pytest.mark.cuda
 
-# The edges of H2's and H3's 32 KB tiles (8192 4-byte or 4096 8-byte
-# elements), of H1's 4096-row tiles and of H4's 4096-slot runs, and many
-# tiles plus one.
-SIZES = [1, 2047, 2048, 2049, 4095, 4096, 4097, 8191, 8192, 8193, 100_003,
+# No element (an empty shard of the distributed path), the edges of H2's
+# and H3's 32 KB tiles (8192 4-byte or 4096 8-byte elements), of H1's
+# 4096-row tiles and of H4's 4096-slot runs, and many tiles plus one.
+SIZES = [0, 1, 2047, 2048, 2049, 4095, 4096, 4097, 8191, 8192, 8193, 100_003,
          37 * 4096 + 1, 37 * 8192 + 1, 3_000_000]
 DTYPES = [torch.int32, torch.int64, torch.float32, torch.float64]
 
@@ -286,6 +286,17 @@ def test_expand_fill_no_sources(dev):
     w = torch.arange(3, dtype=torch.int32, device=dev)
     (got,) = kernels.expand_fill(pos, [w], 1000)
     assert int(got.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("cap", [0, 1000])
+def test_expand_fill_of_zero_sources(dev, cap):
+    pos = torch.zeros(0, dtype=torch.int32, device=dev)
+    words = [torch.zeros(0, dtype=dt, device=dev)
+             for dt in (torch.int32, torch.int64)]
+    got = kernels.expand_fill(pos, words, cap)
+    for g, w in zip(got, kernels.expand_fill_plain(pos, words, cap)):
+        assert g.shape == (cap,)
+        torch.testing.assert_close(g, w.to(dev), rtol=0, atol=0)
 
 
 def test_wrappers_refuse_what_they_cannot_launch(dev):
@@ -578,3 +589,53 @@ def test_compaction_indices_on_the_card(dev, p):
     assert int(count) == int(keep.sum())
     want = np.concatenate([np.flatnonzero(keep), np.flatnonzero(~keep)])
     assert np.array_equal(perm.cpu().numpy(), want)
+
+
+def _dist_inputs(device):
+    from libgdf_tpu_torch import Table
+    rng = np.random.default_rng(17)
+    n = 4000
+    fact = Table.from_dict(
+        {"k": (rng.zipf(1.3, n) % 500).astype(np.int64),
+         "v": rng.standard_normal(n).astype(np.float32)},
+        {"v": rng.random(n) < 0.1}, device=device)
+    dim = Table.from_dict({"k": np.arange(500, dtype=np.int64),
+                           "w": rng.random(500).astype(np.float32)},
+                          device=device)
+    return fact, dim
+
+
+@pytest.mark.parametrize("op", ["dist_groupby", "dist_join"])
+def test_distributed_on_the_card_matches_cpu(dev, op):
+    """P = 8 in-process shards on the card against the same pipeline on
+    8 CPU shards: per-shard counts and live rows exact, float32 sums to
+    rtol 1e-5, atol 1e-5 (the segmented scans add in another order)."""
+    from libgdf_tpu_torch import parallel as par
+    res = {}
+    for d in ("cpu", "cuda"):
+        mesh = par.make_mesh(8, device=d)
+        fact, dim = (par.distribute(t, mesh) for t in _dist_inputs(d))
+        if op == "dist_groupby":
+            out = par.dist_groupby(mesh, fact, ["k"], [
+                ("v", "sum", "s"), ("v", "count", "c"), ("v", "avg", "a")],
+                num_batches=2)
+        else:
+            out = par.dist_join(mesh, fact, dim, ["k"], ["k"], how="left",
+                                out_capacity_per_shard=4000)
+        res[d] = out
+    g, c = res["cuda"], res["cpu"]
+    assert g.capacity == c.capacity
+    assert g.counts.cpu().tolist() == c.counts.tolist()
+    for gs, cs, k in zip(g.shards, c.shards, c.counts.tolist()):
+        for name in cs.names:
+            gc, cc = gs[name], cs[name]
+            assert (gc.valid is None) == (cc.valid is None)
+            ok = torch.ones(k, dtype=torch.bool) if cc.valid is None \
+                else cc.valid[:k]
+            if gc.valid is not None:
+                assert torch.equal(gc.valid[:k].cpu(), ok)
+            gv, cv = gc.data[:k].cpu()[ok], cc.data[:k][ok]
+            if name in ("s", "a"):
+                torch.testing.assert_close(gv, cv, rtol=1e-5, atol=1e-5)
+            else:
+                assert torch.equal(gv, cv), name

@@ -249,3 +249,37 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     with pytest.raises(GDFError, match="nvcc failed"):
         _lib.build()
     assert list(tmp_path.iterdir()) == []
+
+
+def test_launch_counts_are_exact_across_threads():
+    """8 threads x 10,000 calls of the locked counter lose no count (the
+    shards of an in-process mesh launch kernels from one thread each)."""
+    import sys
+    import threading
+
+    def fake():
+        pass
+    fake.launches, fake.launches_by_dtype = 0, {}
+    calls, threads = 10_000, 8
+
+    def work(i):
+        dt = torch.int32 if i % 2 else torch.float64
+        for _ in range(calls):
+            kernels.count_launch(fake, dt)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        ts = [threading.Thread(target=work, args=(i,)) for i in range(threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in ts)
+    finally:
+        sys.setswitchinterval(old)
+    assert fake.launches == threads * calls
+    assert fake.launches_by_dtype == {"int32": threads * calls // 2,
+                                      "float64": threads * calls // 2}
+    _lib.reset_counts(fake)
+    assert fake.launches == 0 and fake.launches_by_dtype == {}

@@ -211,3 +211,25 @@ def test_groupby_float_keys(rng):
             jax_op("groupby", jt, key_names=("k",), aggs=aggs, dropna=dropna),
             tops.groupby(tt, ["k"], aggs, dropna=dropna),
             tie_keys=["k"], tie_break=["s", "m"])
+
+
+@pytest.mark.parametrize("nkeys", [1, 2])
+def test_argsort_keys(rng, nkeys):
+    """engine.argsort_keys: the sorted keys, the permutation and the
+    payloads, ties in input order (stable). `stable` is accepted and the
+    sort stays stable."""
+    import jax
+    import libgdf_tpu.ops.engine as jeng
+    import libgdf_tpu_torch.ops.engine as teng
+    import torch
+
+    keys = [rng.integers(0, 7, N).astype(np.int32),
+            rng.integers(-3, 3, N).astype(np.int64)][:nkeys]
+    pay = [rng.standard_normal(N), rng.integers(0, 99, N).astype(np.int32)]
+    jk, jp, jpay = jax.jit(lambda k, p: jeng.argsort_keys(k, p))(keys, pay)
+    tk, tp, tpay = teng.argsort_keys([torch.as_tensor(k) for k in keys],
+                                     [torch.as_tensor(p) for p in pay])
+    for a, b in zip(list(jk) + [jp] + list(jpay), list(tk) + [tp] + tpay):
+        np.testing.assert_array_equal(np_of(b), np_of(a))
+    (s,) = teng.multi_sort([torch.as_tensor(keys[0])], 1, stable=False)
+    np.testing.assert_array_equal(s.numpy(), np.sort(keys[0], kind="stable"))
