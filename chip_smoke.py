@@ -85,8 +85,23 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    collected and sorted by key, is held to the single-table filter_table ->
    join -> groupby on the card; and the same distributed pipeline at 1M
    rows runs on the card and on 8 CPU shards, held shard by shard.
-8. Prints a JSON line of the operators, one of the kernels, the card line,
-   and last {"ok": true, "device": {...}}.
+8. Drives the probe path: the Hopper counterparts of the 14 Pallas cost
+   probes under benchmarks/ (libgdf_tpu_torch.probes, P-1 .. P-14), each
+   at its probe's shapes and the gathers and the one-hot compaction also at
+   the main path's scale (81,920 x 128 indices, 10.5M elements), with the
+   launch counts reset just before and read just after; every P-n must
+   launch. Each output is held to its plain version on the card, exactly,
+   and to its probe's own check (every 64K block sorted and key[payload]
+   the sorted keys; np.roll step by step; the gathers against numpy; p3's
+   kept rows; p6's 4096). Each kernel is timed with CUDA events and
+   torch.profiler (launches per call: 10 for the tile sort, 1 else), beside
+   its plain version and, where one PyTorch call computes the same function,
+   that call; its bound is the larger of its bytes over 3.35 TB/s and its
+   operations over the card's rate for their type. It prints P-1's verdict
+   (the probe's full-sort estimate against the library's two-operand sort)
+   and the dynamic / static roll ratio.
+9. Prints a JSON line of the operators, one of the kernels (H1-H4 and
+   P-1 .. P-14), the card line, and last {"ok": true, "device": {...}}.
 
 Tolerances: integers, counts, validity, quantiles, window minima and
 maxima and row order exact; kernel float32 sums within 2e-4 and float64
@@ -121,8 +136,10 @@ from libgdf_tpu_torch import Column, GDFError, Table, TimeUnit, ops
 from libgdf_tpu_torch import parallel as par
 from libgdf_tpu_torch.compat import gdf
 from libgdf_tpu_torch.io import CSVReadArg
+from libgdf_tpu_torch import probes
 from libgdf_tpu_torch.ops import kernels
 from libgdf_tpu_torch.ops.sort import radix_encode
+from libgdf_tpu_torch.probes import caps, gather, roll, tilesort
 
 SOURCES = {
     "compact": ("libgdf_tpu_torch/csrc/compact.cu",
@@ -168,8 +185,57 @@ DIST_KERNELS = ("compact", "seg_scan")
 KERNEL_NAMES = {"compact": ("compact_lookback",),
                 "scan": ("scan_lookback",),
                 "seg_scan": ("scan_lookback",),
-                "expand_fill": ("expand_fill_runs",)}
+                "expand_fill": ("expand_fill_runs",),
+                "tile_sort": ("tile_sort_smem", "tile_sort_global"),
+                "lane_gather": ("lane_gather_rows",),
+                "sublane_gather": ("sublane_gather_slabs",),
+                "flat_take": ("flat_take_slabs",),
+                "roll_static": ("roll_static_rows",),
+                "roll_dynamic": ("roll_dynamic_rows",),
+                **{name: (name,) for name in caps.CAPS}}
 OWN_KERNELS = tuple(k for names in KERNEL_NAMES.values() for k in names)
+_PG = "benchmarks/probe_pallas_gather.py"
+_PC = "benchmarks/probe_pallas_caps.py"
+# P-n -> (wrapper, source, the Pallas site it replaces)
+PROBE_SOURCES = {
+    "P-1": ("tile_sort", "libgdf_tpu_torch/csrc/probe_tilesort.cu",
+            "benchmarks/probe_tilesort.py:91"),
+    "P-2": ("lane_gather", "libgdf_tpu_torch/csrc/probe_gather.cu",
+            f"{_PG}:63"),
+    "P-3": ("sublane_gather", "libgdf_tpu_torch/csrc/probe_gather.cu",
+            f"{_PG}:87"),
+    "P-4": ("flat_take", "libgdf_tpu_torch/csrc/probe_gather.cu",
+            f"{_PG}:111"),
+    "P-5": ("flat_take", "libgdf_tpu_torch/csrc/probe_gather.cu",
+            f"{_PG}:142"),
+    "P-6": ("roll_static", "libgdf_tpu_torch/csrc/probe_roll.cu",
+            "benchmarks/probe_roll.py:38"),
+    "P-7": ("roll_dynamic", "libgdf_tpu_torch/csrc/probe_roll.cu",
+            "benchmarks/probe_roll.py:46"),
+    "P-8": ("cap_dyn_store", "libgdf_tpu_torch/csrc/probe_caps.cu",
+            f"{_PC}:40"),
+    "P-9": ("cap_cumsum2d", "libgdf_tpu_torch/csrc/probe_caps.cu",
+            f"{_PC}:54"),
+    "P-10": ("cap_onehot_compact", "libgdf_tpu_torch/csrc/probe_caps.cu",
+             f"{_PC}:89"),
+    "P-11": ("cap_bulk_copy", "libgdf_tpu_torch/csrc/probe_caps.cu",
+             f"{_PC}:114"),
+    "P-12": ("lane_gather", "libgdf_tpu_torch/csrc/probe_gather.cu",
+             f"{_PC}:138"),
+    "P-13": ("cap_carry", "libgdf_tpu_torch/csrc/probe_caps.cu",
+             f"{_PC}:157"),
+    "P-14": ("cap_dyn_loop", "libgdf_tpu_torch/csrc/probe_caps.cu",
+             f"{_PC}:176"),
+}
+# the capability probe behind each P-n of probe_pallas_caps.py
+CAP_PROBES = {"P-8": "p1", "P-9": "p2", "P-10": "p3", "P-11": "p4",
+              "P-12": "p5", "P-13": "p6", "P-14": "p7"}
+GATHER_SCALE_ROWS = 81_920      # 10.5M indices: the gathers after a sort
+COMPACT_SCALE_TILES = 40_960    # 10.5M elements of one-hot compaction
+# H100 SXM data sheet, at 700 W: float32 outside the tensor cores (the
+# rate taken for 32-bit scalar work) and int8 on the tensor cores
+SCALAR_OPS_PER_MS = 67e12 / 1e3
+INT8_TC_OPS_PER_MS = 1979e12 / 1e3
 
 
 def fail(msg):
@@ -244,30 +310,37 @@ def _device_us(event):
     return float(event.self_cuda_time_total if us is None else us)
 
 
-def profiled(fn, names, reps=5):
+def profiled(fn, names, reps=5, expect=None):
     """(device milliseconds, launches) per call of fn() in the kernels
     whose names contain one of `names`, and {activity: count per call} of
     every device activity (kernels and memsets), from torch.profiler over
     reps calls after a warm-up; (None, None, {}) if three profiles in a row
     saw no such kernel (a profile now and then comes back without device
-    events)."""
+    events, or, for a burst of launches, without some of them: given
+    `expect` launches per call, a profile that saw another count is taken
+    again, and the last one returned if none saw it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    seen = None, None, {}
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.01)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(0.01)
         dev = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
         mine = [e for e in dev if any(n in e.key for n in names)]
         us = sum(_device_us(e) for e in mine)
         if us:
-            return (us / reps / 1e3, sum(e.count for e in mine) / reps,
+            seen = (us / reps / 1e3, sum(e.count for e in mine) / reps,
                     {e.key[:60]: e.count / reps for e in dev})
-    return None, None, {}
+            if expect is None or seen[1] == expect:
+                return seen
+    return seen
 
 
 def profiled_ms(fn, names, reps=5):
@@ -1234,6 +1307,271 @@ def drive(path, run, data, dev, card):
     return res, launches
 
 
+# -- the probe path ---------------------------------------------------------
+
+def probe_case(pn, run, plain, moved, shape, *, scale=False, library=None,
+               ops=0.0, ops_per_ms=SCALAR_OPS_PER_MS, rows=None, check=None,
+               per_call=1):
+    """One run of P-n's kernel: `run` and `plain` give its output and its
+    plain version's, `library` (or None) one PyTorch call of the same
+    function; `moved` bytes and `ops` operations (at `ops_per_ms`) bound
+    it; `rows` of the output are specified; `check(output)` is the probe's
+    own check; a call launches `per_call` kernels."""
+    return dict(key=f"{pn}@scale" if scale else pn, pn=pn,
+                wrapper=PROBE_SOURCES[pn][0], run=run, plain=plain,
+                library=library, moved=moved, ops=ops,
+                ops_per_ms=ops_per_ms, rows=rows, check=check,
+                per_call=per_call, shape=shape)
+
+
+def _tile_sort_check(key):
+    kc = key.view(-1, tilesort.BLOCK)
+
+    def check(out):
+        ko, po = out
+        return torch.equal(ko.view(-1, tilesort.BLOCK),
+                           torch.sort(kc, 1).values) and \
+            torch.equal(key[po.long()], ko)
+    return check
+
+
+def make_probe_cases(dev, seed=0):
+    """Every P-n at its probe's shapes (the probe's own inputs), and the
+    gathers and the one-hot compaction at the main path's scale."""
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    n = tilesort.DEFAULT_N
+    rng = np.random.default_rng(0)              # the probe's keys
+    key = t(rng.integers(0, 2 ** 31 - 1, n).astype(np.int32))
+    pay = torch.arange(n, dtype=torch.int32, device=dev)
+    words = tilesort.pack(key, pay).view(-1, tilesort.BLOCK)
+    cases = [probe_case(
+        "P-1", lambda: tilesort.tile_sort(key, pay),
+        lambda: tilesort.tile_sort_plain(key, pay), 2 * nbytes(key, pay),
+        f"{n} int32 key + payload, 64K blocks; library: torch.sort of "
+        f"the packed int64 words by block",
+        library=lambda: torch.sort(words, dim=1),
+        ops=2 * tilesort.stage_counts(tilesort.BLOCK, tilesort.BLOCK)[0]
+        * n / 2, check=_tile_sort_check(key), per_call=10)]
+    cases[0]["args"] = (key, pay)
+
+    rng = np.random.default_rng(seed)
+    names = {"lane": "P-2", "sublane": "P-3"}
+    for i, (name, kind, x, idx) in enumerate(gather.probe_inputs()):
+        pn = names.get(kind, "P-4" if i == 2 else "P-5")
+        fn, plain = gather.GATHERS[kind], gather.PLAIN[kind]
+        want = torch.as_tensor(gather.NUMPY[kind](x, idx))
+        scale_idx = rng.integers(0, {"lane": 128, "sublane": x.shape[0],
+                                     "flat": x.size}[kind],
+                                 (GATHER_SCALE_ROWS, 128)).astype(np.int32)
+        scale_x = rng.standard_normal((GATHER_SCALE_ROWS, 128)).astype(
+            np.float32) if kind == "lane" else x
+        for scale, (xv, iv) in ((False, (x, idx)),
+                                (True, (scale_x, scale_idx))):
+            xt, it = t(xv), t(iv)
+            i64 = it.long()
+            lib = {"lane": lambda xt=xt, i64=i64:
+                   torch.take_along_dim(xt, i64, 1),
+                   "sublane": lambda xt=xt, i64=i64:
+                   torch.take_along_dim(xt, i64, 0),
+                   "flat": lambda xt=xt, i64=i64: xt.reshape(-1)[i64]}[kind]
+            cases.append(probe_case(
+                pn, lambda fn=fn, xt=xt, it=it: fn(xt, it),
+                lambda plain=plain, xt=xt, it=it: plain(xt, it),
+                nbytes(xt, it) + it.numel() * 4,
+                f"{name}: x {tuple(xv.shape)} float32, idx "
+                f"{tuple(iv.shape)} int32; library: the same call on int64 "
+                f"indices", scale=scale, library=lib,
+                check=None if scale else
+                (lambda out, want=want: torch.equal(out.cpu(), want))))
+
+    x, s = roll.probe_inputs()
+    rx, rs = t(x), t(s)
+    for pn, run, plain, shifts in (
+            ("P-6", lambda: roll.roll_static(rx),
+             lambda: roll.roll_static_plain(rx), roll.static_shifts()),
+            ("P-7", lambda: roll.roll_dynamic(rs, rx),
+             lambda: roll.roll_dynamic_plain(rs, rx),
+             roll.dynamic_shifts(s))):
+        want = torch.as_tensor(roll.numpy_roll(x, shifts))
+        cases.append(probe_case(
+            pn, run, plain, 2 * nbytes(rx) + (pn == "P-7") * nbytes(rs),
+            f"{roll.REPS} rolls of int32 (512, 128), each + 1",
+            ops=2 * roll.REPS * rx.numel(),
+            check=lambda out, want=want: torch.equal(out.cpu(), want)))
+
+    inputs = caps.probe_inputs()
+    for pn, name in CAP_PROBES.items():
+        _, kernel, plain, rows = caps.PROBES[name]
+        args = [t(a) for a in inputs[name]]
+        lib = None
+        if pn == "P-10":
+            def lib(px=args[0], pk=args[1]):
+                out = torch.zeros_like(px).view(-1)
+                kept = px.view(-1)[pk.view(-1) != 0]
+                out[:kept.numel()] = kept
+                return out
+        elif pn == "P-12":
+            lib = lambda px=args[0], i64=args[1].long(): \
+                torch.take_along_dim(px, i64, 1)
+        elif pn == "P-13":
+            lib = lambda px=args[0]: px.sum()
+        out_bytes = {"P-11": caps.bulk_rows(3) * 128 * 4, "P-13": 4,
+                     "P-14": 128 * 4}.get(pn, nbytes(args[0]))
+        cases.append(probe_case(
+            pn, lambda kernel=kernel, args=args: kernel(*args),
+            lambda plain=plain, args=args: plain(*args),
+            nbytes(*args) + out_bytes,
+            f"probe_pallas_caps.py {name}: " + ", ".join(
+                f"{a.dtype} {tuple(a.shape)}" for a in args),
+            library=lib, rows=rows,
+            ops=2 * 4 * 256 * 256 if pn == "P-10" else 0.0,
+            ops_per_ms=INT8_TC_OPS_PER_MS if pn == "P-10" else
+            SCALAR_OPS_PER_MS,
+            check=lambda out, name=name, rows=rows: caps.probe_check(
+                name, out.cpu()[:rows].numpy())))
+    m = COMPACT_SCALE_TILES * caps.COMPACT_TILE
+    cx = t(rng.integers(-2 ** 31, 2 ** 31, m).astype(np.int32))
+    ck = t((rng.random(m) < 0.5).astype(np.int32))
+    cases.append(probe_case(
+        "P-10", lambda: caps.cap_onehot_compact(cx, ck),
+        lambda: caps.cap_onehot_compact_plain(cx, ck), 3 * nbytes(cx),
+        f"{COMPACT_SCALE_TILES} tiles of 256 int32, half kept", scale=True,
+        ops=2 * 4 * 256 * 256 * COMPACT_SCALE_TILES,
+        ops_per_ms=INT8_TC_OPS_PER_MS))
+    return cases
+
+
+def run_probe_path(cases):
+    """Each case's kernel once, with the launch counts reset just before
+    and read just after: (outputs, launches per case, launches per
+    wrapper)."""
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    probes.reset_launch_counts()
+    outs, per = {}, {}
+    for c in cases:
+        before = probes.launch_counts()[c["wrapper"]]
+        outs[c["key"]] = c["run"]()
+        per[c["key"]] = probes.launch_counts()[c["wrapper"]] - before
+    torch.cuda.synchronize()
+    return outs, per, probes.launch_counts()
+
+
+def check_probe_path(cases, outs):
+    """Each output against its plain version on the card, exactly, over its
+    specified rows, and against its probe's own check; {case: error}."""
+    errs = {}
+    for c in cases:
+        got, want = outs[c["key"]], c["plain"]()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs[c["key"]] = max(
+            exact(g[:c["rows"]], w[:c["rows"]], f"{c['key']} output {i}")
+            for i, (g, w) in enumerate(zip(got, want)))
+        if c["check"] and not c["check"](got if len(got) > 1 else got[0]):
+            fail(f"{c['key']}: the probe's own check failed")
+    return errs
+
+
+def time_probe_case(c, err):
+    """Event, profiler, plain and library times of one case (and, for a
+    wrapper of several kernels, the device time of each), its bound; `err`
+    is its error against the plain version."""
+    ms = cuda_ms(c["run"])
+    dev_ms, launches, acts = profiled(c["run"], KERNEL_NAMES[c["wrapper"]],
+                                      expect=c["per_call"])
+    if launches is not None and launches > c["per_call"]:
+        fail(f"{c['key']}: {launches} launches per call, not "
+             f"{c['per_call']} ({acts})")
+    if launches is not None and launches < c["per_call"]:
+        print(f"{c['key']}: three profiles saw {launches} of its "
+              f"{c['per_call']} launches per call; device time not "
+              f"measured", flush=True)
+        dev_ms = None
+    names = KERNEL_NAMES[c["wrapper"]]
+    split = {n: profiled(c["run"], (n,))[0] for n in names} \
+        if len(names) > 1 else None
+    by_bytes = bound_ms(c["moved"])
+    by_ops = c["ops"] / c["ops_per_ms"]
+    lib = c["library"]
+    return dict(max_abs_err=err, ms=ms, profiler_ms=dev_ms,
+                launches_per_call=launches, plain_ms=cuda_ms(c["plain"]),
+                library_ms=cuda_ms(lib) if lib else None,
+                library_profiler_ms=profiled_ms(lib, ("",)) if lib else None,
+                bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                split_ms=split, shape=c["shape"])
+
+
+def run_probes(dev, card):
+    """The probe path: drive, check, time. Returns ({P-n: stats, with the
+    main-scale run under "at_scale"}, {P-n: launches on the path})."""
+    t0 = time.perf_counter()
+    cases = make_probe_cases(dev)
+    run_probe_path(cases)                       # warm-up
+    outs, per, counts = run_probe_path(cases)
+    print(f"probes path launches {counts}", flush=True)
+    missing = sorted({c["pn"] for c in cases if per[c["key"]] == 0} |
+                     {w for w, k in counts.items() if k == 0})
+    if missing:
+        fail(f"probe path launched no {missing}")
+    errs = check_probe_path(cases, outs)
+    del outs
+    print(f"probe path: every P-n equals its plain version and passes its "
+          f"probe's check ({time.perf_counter() - t0:.1f} s)", flush=True)
+    stats, launches = {}, {}
+    for c in cases:
+        st = time_probe_case(c, errs[c["key"]])
+        print(f"kernel {c['key']} {c['wrapper']}: " + " ".join(
+            f"{k}={v}" for k, v in st.items()
+            if k not in ("shape", "split_ms")) + f" ({st['shape']}; {card})",
+            flush=True)
+        if st["split_ms"]:
+            print(f"kernel {c['key']} device ms by kernel {st['split_ms']}",
+                  flush=True)
+        launches[c["pn"]] = launches.get(c["pn"], 0) + per[c["key"]]
+        if c["key"] == c["pn"]:
+            stats[c["pn"]] = st
+        else:
+            stats[c["pn"]]["at_scale"] = st
+    tile_verdict(cases[0], stats["P-1"], card)
+    static, dynamic = stats["P-6"]["ms"], stats["P-7"]["ms"]
+    print(f"roll: static {static * 1e6 / roll.REPS:.2f} ns/roll, dynamic "
+          f"{dynamic * 1e6 / roll.REPS:.2f} ns/roll, dynamic/static ratio "
+          f"{dynamic / static:.4f} ({card})", flush=True)
+    print(f"probe path {time.perf_counter() - t0:.1f} s", flush=True)
+    return stats, launches
+
+
+def tile_verdict(case, st, card):
+    """The probe's verdict: its full-sort estimate from this block's stage
+    counts against the library's whole-array two-operand sort."""
+    key, pay = case["args"]
+    n = key.shape[0]
+    lib_ms = cuda_ms(lambda: tilesort.sort_2op(key, pay))
+    pack_ms = cuda_ms(lambda: tilesort.pack(key, pay))
+    words = tilesort.pack(key, pay)
+    unpack_ms = cuda_ms(lambda: tilesort.unpack(words))
+    npad = 1 << (n - 1).bit_length()
+    tile_stages, in_block, cross = tilesort.stage_counts(tilesort.BLOCK, npad)
+    tile_rate = n / (st["ms"] / 1e3)
+    lib_rate = n / (lib_ms / 1e3)
+    est = tile_rate * tile_stages / in_block * (n / npad)
+    verdict = "keep" if est > tilesort.KEEP_MARGIN * lib_rate else "kill"
+    st.update(torch_sort_2op_ms=lib_ms, pack_ms=pack_ms, unpack_ms=unpack_ms,
+              full_sort_est_rows_per_s=est, verdict=verdict)
+    print(f"tile sort verdict: n={n} tile_sort_ms={st['ms']:.4f} "
+          f"tile_sort_rows_per_s={tile_rate:.4e} stages {tile_stages} / "
+          f"{in_block} in-block, {cross} cross-block passes (npad {npad}) "
+          f"full_sort_est_rows_per_s={est:.4e} torch_sort_2op_ms="
+          f"{lib_ms:.4f} torch_sort_2op_rows_per_s={lib_rate:.4e} "
+          f"(library by block: {st['library_ms']:.4f} ms, pack "
+          f"{pack_ms:.4f} ms, unpack {unpack_ms:.4f} ms) verdict={verdict} "
+          f"({card})", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1383,6 +1721,8 @@ def main():
           "by shard", flush=True)
     del sgpu, scpu, small
 
+    pstats, plaunches = run_probes(dev, card)
+
     pipeline = {op: {"rows_in": rows, "seconds": secs,
                      "rows_per_s": rows / secs}
                 for op, (rows, secs) in {**times, **atimes, **btimes,
@@ -1398,7 +1738,11 @@ def main():
              path: {k: v for k, v in p.items() if k.split("[")[0] == name}
              for path, p in paths.items()},
          **{k: v for k, v in stats[name].items() if k != "shape"}}
-        for name in SOURCES]}), flush=True)
+        for name in SOURCES] + [
+        {"name": f"{pn} {wrapper}", "route": "cuda", "source": source,
+         "replaces": replaces, "launches": plaunches[pn], **pstats[pn]}
+        for pn, (wrapper, source, replaces) in PROBE_SOURCES.items()]}),
+        flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,6 +47,19 @@ _SIGNATURES = {
     "gdf_compact": (_I, [_P, _I64, _I, _PP, _PP, _PI, _P, _P, _I64, _P]),
     "gdf_expand_max_words": (_I, []),
     "gdf_expand_fill": (_I, [_P, _I64, _I64, _I, _PP, _PP, _PI, _P]),
+    # the cost probes (libgdf_tpu_torch/probes/)
+    "gdf_probe_tile_sort": (_I, [_P, _P, _P, _P, _I64, _P]),
+    "gdf_probe_lane_gather": (_I, [_P, _P, _P, _I64, _I, _P]),
+    "gdf_probe_sublane_gather": (_I, [_P, _I, _P, _P, _I64, _I, _P]),
+    "gdf_probe_flat_take": (_I, [_P, _I64, _P, _P, _I64, _I, _P]),
+    "gdf_probe_roll_static": (_I, [_P, _P, _I64, _I, _P]),
+    "gdf_probe_roll_dynamic": (_I, [_P, _P, _P, _I64, _I, _P]),
+    "gdf_probe_cap_dyn_store": (_I, [_P, _P, _I, _P]),
+    "gdf_probe_cap_cumsum2d": (_I, [_P, _P, _I, _P]),
+    "gdf_probe_cap_onehot_compact": (_I, [_P, _P, _P, _I64, _P]),
+    "gdf_probe_cap_bulk_copy": (_I, [_P, _P, _I, _P]),
+    "gdf_probe_cap_carry": (_I, [_P, _P, _I, _P]),
+    "gdf_probe_cap_dyn_loop": (_I, [_P, _P, _I, _P]),
 }
 
 _LOCK = threading.Lock()

@@ -639,3 +639,189 @@ def test_distributed_on_the_card_matches_cpu(dev, op):
                 torch.testing.assert_close(gv, cv, rtol=1e-5, atol=1e-5)
             else:
                 assert torch.equal(gv, cv), name
+
+
+# -- the cost probes (libgdf_tpu_torch/probes/), P-1 .. P-14 -----------------
+
+def _same(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 176])
+def test_tile_sort(dev, blocks):
+    """Every 65,536-element block sorted by (key, payload), over full-range
+    keys and an iota payload; 176 blocks is the probe's 11 x 2^20."""
+    from libgdf_tpu_torch.probes import tilesort
+    n = blocks * tilesort.BLOCK
+    rng = np.random.default_rng(blocks)
+    key = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, n)
+                          .astype(np.int32), device=dev)
+    pay = torch.arange(n, dtype=torch.int32, device=dev)
+    ko, po = tilesort.tile_sort(key, pay)
+    wk, wp = tilesort.tile_sort_plain(key, pay)
+    _same(ko, wk)
+    _same(po, wp)
+    _same(ko.view(-1, tilesort.BLOCK),
+          torch.sort(key.view(-1, tilesort.BLOCK), 1).values)
+    _same(key[po.long()], ko)
+
+
+def test_tile_sort_ties(dev):
+    """Keys in [-4, 4) and a permuted, partly negative payload: ties come
+    out in signed payload order, across the tile / device-memory stages."""
+    from libgdf_tpu_torch.probes import tilesort
+    n = 2 * tilesort.BLOCK
+    rng = np.random.default_rng(11)
+    key = rng.integers(-4, 4, n).astype(np.int32)
+    pay = (rng.permutation(n) - 50_000).astype(np.int32)
+    ko, po = tilesort.tile_sort(torch.as_tensor(key, device=dev),
+                                torch.as_tensor(pay, device=dev))
+    for b in range(2):
+        s = slice(b * tilesort.BLOCK, (b + 1) * tilesort.BLOCK)
+        order = np.lexsort((pay[s], key[s]))
+        np.testing.assert_array_equal(ko[s].cpu().numpy(), key[s][order])
+        np.testing.assert_array_equal(po[s].cpu().numpy(), pay[s][order])
+
+
+def _gather_idx(rng, rows, size, dev):
+    """Random indices with 0 and size - 1 in every row, and a few that
+    count from the end or fall outside the table."""
+    idx = rng.integers(0, size, (rows, 128)).astype(np.int32)
+    idx[:, 0], idx[:, 1] = 0, size - 1
+    idx[0, 2:7] = [-1, -size, size, -size - 1, -2 ** 31]
+    return torch.as_tensor(idx, device=dev)
+
+
+@pytest.mark.parametrize("rows", [1024, 81_920, 13])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_lane_gather(dev, rows, dtype):
+    from libgdf_tpu_torch.probes import gather
+    rng = np.random.default_rng(rows)
+    x = _values(rng, rows * 128, dtype, dev).view(rows, 128)
+    idx = _gather_idx(rng, rows, 128, dev)
+    _same(gather.lane_gather(x, idx), gather.lane_gather_plain(x, idx))
+
+
+@pytest.mark.parametrize("rows", [1024, 81_920, 13])
+@pytest.mark.parametrize("table_rows", [1, 1024, 1792])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_sublane_gather(dev, rows, table_rows, dtype):
+    from libgdf_tpu_torch.probes import gather
+    rng = np.random.default_rng(rows + table_rows)
+    x = _values(rng, table_rows * 128, dtype, dev).view(table_rows, 128)
+    idx = _gather_idx(rng, rows, table_rows, dev)
+    _same(gather.sublane_gather(x, idx), gather.sublane_gather_plain(x, idx))
+
+
+@pytest.mark.parametrize("rows", [8192, 81_920, 13])
+@pytest.mark.parametrize("table", [(1 << 16,), (512, 128), (1000,),
+                                   (100_000,)])
+def test_flat_take(dev, rows, table):
+    """The probe's 64K table (two 128 KB halves), its (512, 128) view, a
+    table of one partial slab and one of four slabs."""
+    from libgdf_tpu_torch.probes import gather
+    rng = np.random.default_rng(rows)
+    t = _values(rng, int(np.prod(table)), torch.float32, dev).view(table)
+    idx = _gather_idx(rng, rows, t.numel(), dev)
+    _same(gather.flat_take(t, idx), gather.flat_take_plain(t, idx))
+
+
+def test_sublane_gather_refuses_a_table_over_shared_memory(dev):
+    from libgdf_tpu_torch.probes import gather
+    x = torch.zeros((gather.MAX_SUBLANE_ROWS + 1, 128), device=dev)
+    with pytest.raises(ValueError):
+        gather.sublane_gather(x, torch.zeros((8, 128), dtype=torch.int32,
+                                             device=dev))
+
+
+@pytest.mark.parametrize("shift", [0, 1, 31, 32, 33, 64, 127])
+@pytest.mark.parametrize("reps", [1, 1024])
+def test_roll_dynamic(dev, shift, reps):
+    from libgdf_tpu_torch.probes import roll
+    x = torch.arange(512 * 128, dtype=torch.int32, device=dev).view(512, 128)
+    s = torch.full((roll.SHIFTS,), shift, dtype=torch.int32, device=dev)
+    _same(roll.roll_dynamic(s, x, reps), roll.roll_dynamic_plain(s, x, reps))
+
+
+@pytest.mark.parametrize("reps", [0, 1, 7, 8, 1024])
+@pytest.mark.parametrize("rows", [512, 13])
+def test_roll_static_and_mixed_shifts(dev, reps, rows):
+    from libgdf_tpu_torch.probes import roll
+    rng = np.random.default_rng(reps)
+    x = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (rows, 128))
+                        .astype(np.int32), device=dev)
+    _same(roll.roll_static(x, reps), roll.roll_static_plain(x, reps))
+    s = torch.tensor([0, 32, 64, 96, 127, -1, -129, 200], dtype=torch.int32,
+                     device=dev)
+    _same(roll.roll_dynamic(s, x, reps), roll.roll_dynamic_plain(s, x, reps))
+
+
+@pytest.mark.parametrize("name", ["p1", "p2", "p3", "p4", "p5", "p6", "p7"])
+def test_caps_on_the_probes_inputs(dev, name):
+    """Each capability kernel against its plain version and the probe's
+    own check (p6 against 4096)."""
+    from libgdf_tpu_torch.probes import caps
+    caps.run_probe(name, dev)
+
+
+def test_caps_on_random_inputs(dev):
+    from libgdf_tpu_torch.probes import caps
+    rng = np.random.default_rng(17)
+
+    def ints(*shape):
+        return torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, shape)
+                               .astype(np.int32), device=dev)
+    for x00 in (-3, 0, 7, 21):
+        x = ints(32, 128)
+        x[0, 0] = x00
+        _same(caps.cap_dyn_store(x), caps.cap_dyn_store_plain(x))
+    for rows in (1, 37, 64):
+        x = ints(rows, 128)
+        _same(caps.cap_cumsum2d(x), caps.cap_cumsum2d_plain(x))
+    for tiles, p in ((1, 0.0), (3, 1.0), (4096, 0.5)):
+        x = ints(tiles * 256)
+        keep = torch.as_tensor((rng.random(tiles * 256) < p)
+                               .astype(np.int32), device=dev)
+        _same(caps.cap_onehot_compact(x, keep),
+              caps.cap_onehot_compact_plain(x, keep))
+    for steps in (1, 2, 10):
+        x = ints(8 * steps, 128)
+        r = caps.bulk_rows(steps)
+        _same(caps.cap_bulk_copy(x)[:r], caps.cap_bulk_copy_plain(x)[:r])
+    for tiles in (1, 4, 100):
+        x = ints(8 * tiles, 128)
+        _same(caps.cap_carry(x), caps.cap_carry_plain(x))
+    for x00 in (-3, 0, 6, 2 ** 31 - 1):
+        x = ints(8, 300)
+        x[0, 0] = x00
+        _same(caps.cap_dyn_loop(x), caps.cap_dyn_loop_plain(x))
+
+
+def test_cap_dyn_store_outside_the_scratch_raises(dev):
+    from libgdf_tpu_torch.probes import caps
+    x = torch.zeros((16, 128), dtype=torch.int32, device=dev)
+    x[0, 0] = 22
+    with pytest.raises(ValueError, match="outside"):
+        caps.cap_dyn_store(x)
+
+
+def test_probe_launch_counts(dev):
+    """One call of each probe wrapper on the card counts one launch."""
+    from libgdf_tpu_torch import probes
+    from libgdf_tpu_torch.probes import caps
+    probes.reset_launch_counts()
+    x = torch.arange(128 * 128, dtype=torch.int32, device=dev)
+    m = x.view(128, 128)
+    probes.wrappers()["tile_sort"](torch.arange(1 << 16, dtype=torch.int32,
+                                                device=dev),
+                                   torch.arange(1 << 16, dtype=torch.int32,
+                                                device=dev))
+    gather_idx = m % 128
+    probes.wrappers()["lane_gather"](m, gather_idx)
+    probes.wrappers()["sublane_gather"](m, gather_idx)
+    probes.wrappers()["flat_take"](x, gather_idx)
+    probes.wrappers()["roll_static"](m, 3)
+    probes.wrappers()["roll_dynamic"](m[0, :8].contiguous(), m, 3)
+    for name in ("p1", "p2", "p3", "p4", "p6", "p7"):
+        caps.run_probe(name, dev)
+    assert probes.launch_counts() == dict.fromkeys(probes.wrappers(), 1)
