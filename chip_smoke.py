@@ -92,9 +92,10 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    launch counts reset just before and read just after; every P-n must
    launch. Each output is held to its plain version on the card, exactly,
    and to its probe's own check (every 64K block sorted and key[payload]
-   the sorted keys; np.roll step by step; the gathers against numpy; p3's
-   kept rows; p6's 4096). Each kernel is timed with CUDA events and
-   torch.profiler (launches per call: 10 for the tile sort, 1 else), beside
+   the sorted keys; np.roll step by step; the gathers against numpy at
+   both shapes; p3's kept rows; p6's 4096). Each kernel is timed with CUDA
+   events and torch.profiler (launches per call: 10 for the tile sort,
+   profiled one call at a time, 1 else), beside
    its plain version and, where one PyTorch call computes the same function,
    that call; its bound is the larger of its bytes over 3.35 TB/s and its
    operations over the card's rate for their type. It prints P-1's verdict
@@ -188,8 +189,8 @@ KERNEL_NAMES = {"compact": ("compact_lookback",),
                 "expand_fill": ("expand_fill_runs",),
                 "tile_sort": ("tile_sort_smem", "tile_sort_global"),
                 "lane_gather": ("lane_gather_rows",),
-                "sublane_gather": ("sublane_gather_slabs",),
-                "flat_take": ("flat_take_slabs",),
+                "sublane_gather": ("sublane_gather_persistent",),
+                "flat_take": ("flat_take_resident",),
                 "roll_static": ("roll_static_rows",),
                 "roll_dynamic": ("roll_dynamic_rows",),
                 **{name: (name,) for name in caps.CAPS}}
@@ -1361,7 +1362,6 @@ def make_probe_cases(dev, seed=0):
     for i, (name, kind, x, idx) in enumerate(gather.probe_inputs()):
         pn = names.get(kind, "P-4" if i == 2 else "P-5")
         fn, plain = gather.GATHERS[kind], gather.PLAIN[kind]
-        want = torch.as_tensor(gather.NUMPY[kind](x, idx))
         scale_idx = rng.integers(0, {"lane": 128, "sublane": x.shape[0],
                                      "flat": x.size}[kind],
                                  (GATHER_SCALE_ROWS, 128)).astype(np.int32)
@@ -1371,6 +1371,7 @@ def make_probe_cases(dev, seed=0):
                                 (True, (scale_x, scale_idx))):
             xt, it = t(xv), t(iv)
             i64 = it.long()
+            want = torch.as_tensor(gather.NUMPY[kind](xv, iv))
             lib = {"lane": lambda xt=xt, i64=i64:
                    torch.take_along_dim(xt, i64, 1),
                    "sublane": lambda xt=xt, i64=i64:
@@ -1383,8 +1384,7 @@ def make_probe_cases(dev, seed=0):
                 f"{name}: x {tuple(xv.shape)} float32, idx "
                 f"{tuple(iv.shape)} int32; library: the same call on int64 "
                 f"indices", scale=scale, library=lib,
-                check=None if scale else
-                (lambda out, want=want: torch.equal(out.cpu(), want))))
+                check=lambda out, want=want: torch.equal(out.cpu(), want)))
 
     x, s = roll.probe_inputs()
     rx, rs = t(x), t(s)
@@ -1480,7 +1480,9 @@ def time_probe_case(c, err):
     wrapper of several kernels, the device time of each), its bound; `err`
     is its error against the plain version."""
     ms = cuda_ms(c["run"])
+    # a burst of launches (P-1's 10 a call) gets a one-call window
     dev_ms, launches, acts = profiled(c["run"], KERNEL_NAMES[c["wrapper"]],
+                                      reps=1 if c["per_call"] > 1 else 5,
                                       expect=c["per_call"])
     if launches is not None and launches > c["per_call"]:
         fail(f"{c['key']}: {launches} launches per call, not "
@@ -1491,8 +1493,8 @@ def time_probe_case(c, err):
               f"measured", flush=True)
         dev_ms = None
     names = KERNEL_NAMES[c["wrapper"]]
-    split = {n: profiled(c["run"], (n,))[0] for n in names} \
-        if len(names) > 1 else None
+    split = {n: profiled(c["run"], (n,), reps=1)[0] for n in names} \
+        if c["per_call"] > 1 else None
     by_bytes = bound_ms(c["moved"])
     by_ops = c["ops"] / c["ops_per_ms"]
     lib = c["library"]

@@ -50,8 +50,10 @@ _SIGNATURES = {
     # the cost probes (libgdf_tpu_torch/probes/)
     "gdf_probe_tile_sort": (_I, [_P, _P, _P, _P, _I64, _P]),
     "gdf_probe_lane_gather": (_I, [_P, _P, _P, _I64, _I, _P]),
-    "gdf_probe_sublane_gather": (_I, [_P, _I, _P, _P, _I64, _I, _P]),
-    "gdf_probe_flat_take": (_I, [_P, _I64, _P, _P, _I64, _I, _P]),
+    "gdf_probe_sublane_occupancy": (_I, [_I, _PI]),
+    "gdf_probe_sublane_gather": (_I, [_P, _I, _P, _P, _I64, _I, _I, _I, _P]),
+    "gdf_probe_flat_take_occupancy": (_I, [_I, _PI]),
+    "gdf_probe_flat_take": (_I, [_P, _I64, _P, _P, _I64, _I, _I, _I, _P]),
     "gdf_probe_roll_static": (_I, [_P, _P, _I64, _I, _P]),
     "gdf_probe_roll_dynamic": (_I, [_P, _P, _P, _I64, _I, _P]),
     "gdf_probe_cap_dyn_store": (_I, [_P, _P, _I, _P]),

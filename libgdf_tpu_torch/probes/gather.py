@@ -11,9 +11,12 @@ gathers that follow every sort in join, groupby and window:
 over float32 or int32 values and int32 indices. Indices act as the probes'
 `jnp.take` / `take_along_axis` do in interpret mode: one in [-size, 0)
 counts from the end, and one outside [-size, size) gives NaN (float32) or
-INT32_MIN (int32). The kernels (`csrc/probe_gather.cu`) hold the table in
-shared memory: a staged row, a 32-column slab, or a 64K table in two
-128 KB halves.
+INT32_MIN (int32). The kernels (`csrc/probe_gather.cu`) hold the table on
+chip: a staged row per block (lane); a 32-column slab per block of a
+persistent grid, staged once by TMA (sublane, `sublane_plan`); for the
+flat take, the table's first words resident in the shared memory of each
+block of a persistent grid and the rest read through L1 / L2 (`take_plan`,
+`take_grid`).
 
     python -m libgdf_tpu_torch.probes.gather [--device cpu]
 
@@ -22,15 +25,23 @@ on the probe's inputs (drawn as the probe draws them).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import sys
 
 import numpy as np
 import torch
 
 from . import _common
+from ..ops.kernels import _lib
 
 LANES = 128
 MAX_SUBLANE_ROWS = 1792         # a 32-column slab of 224 KB
+# the kernels' geometry, as in csrc/probe_gather.cu
+SUB_WARPS, SUB_ROWS_IN_FLIGHT = 32, 8   # a block's warps; rows a warp holds
+TAKE_SLAB_WORDS = 49_152        # words a block holds, 192 KB
+TAKE_THREADS = 1024
+TAKE_WORDS_PER_THREAD = 8       # two 16-byte index vectors in flight
 DTYPES = (torch.float32, torch.int32)
 # the fill of an index outside the table, and its bits as an int32
 FILL = {torch.float32: float("nan"), torch.int32: -2 ** 31}
@@ -80,6 +91,50 @@ def flat_take_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _filled(table.reshape(-1)[i], ok)
 
 
+def take_plan(n: int) -> int:
+    """S, the words of a table of n words that each block of `flat_take`
+    holds in shared memory: n rounded up to a multiple of 4, at most
+    TAKE_SLAB_WORDS. Words past S are read through L1 / L2."""
+    return min(-(-n // 4) * 4, TAKE_SLAB_WORDS)
+
+
+def take_grid(n_idx: int, blocks_per_sm: int, sms: int) -> int:
+    """Blocks of a persistent `flat_take` launch over n_idx indices: the
+    blocks the card holds at once, never more than the indices fill, at
+    least one."""
+    need = -(-n_idx // (TAKE_THREADS * TAKE_WORDS_PER_THREAD))
+    return max(1, min(blocks_per_sm * sms, need))
+
+
+def sublane_plan(rows: int, sms: int, blocks_per_sm: int):
+    """(chunk_rows, grid) of a persistent `sublane_gather` over `rows`
+    index rows: G = the smaller of the blocks the card holds at once (a
+    multiple of 4) and 4 x the row chunks, block b serving slab b % 4. A
+    chunk is SUB_WARPS x k rows, k rows a warp, the largest k up to
+    SUB_ROWS_IN_FLIGHT that still gives every block a chunk."""
+    most = max(4, sms * blocks_per_sm // 4 * 4)
+    k = SUB_ROWS_IN_FLIGHT
+    while k > 1 and 4 * -(-rows // (SUB_WARPS * k)) < most:
+        k //= 2
+    chunk = SUB_WARPS * k
+    return chunk, min(most, 4 * -(-rows // chunk))
+
+
+@functools.lru_cache(maxsize=None)
+def _units(device_index: int, entry: str, *args) -> int:
+    """What occupancy query `entry` of the kernel library answers for its
+    arguments on the card `device_index` (one call per key)."""
+    units = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _lib.check(getattr(_lib.lib(), entry)(*args, ctypes.byref(units)),
+                   entry)
+    return units.value
+
+
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def lane_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[i, j] = x[i, idx[i, j]]; x and idx (M, 128)."""
     _check_rows("lane_gather", x, idx)
@@ -102,10 +157,14 @@ def sublane_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                          f"1 .. {MAX_SUBLANE_ROWS}")
     if _common.on_cpu(x, idx):
         return sublane_gather_plain(x, idx)
+    dev = _lib.require_cuda("sublane_gather", x, idx)
+    chunk, grid = sublane_plan(
+        idx.shape[0], _sms(dev),
+        _units(dev.index, "gdf_probe_sublane_occupancy", x.shape[0]))
     out = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
     _common.launch(sublane_gather, "sublane_gather",
                    "gdf_probe_sublane_gather", x, x.shape[0], idx, out,
-                   idx.shape[0], FILL_BITS[x.dtype])
+                   idx.shape[0], FILL_BITS[x.dtype], chunk, grid)
     return out
 
 
@@ -117,10 +176,14 @@ def flat_take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError("flat_take: empty table")
     if _common.on_cpu(table, idx):
         return flat_take_plain(table, idx)
+    dev = _lib.require_cuda("flat_take", table, idx)
+    slab = take_plan(table.numel())
+    grid = take_grid(idx.numel(), _units(
+        dev.index, "gdf_probe_flat_take_occupancy", slab), _sms(dev))
     out = torch.empty(idx.shape, dtype=table.dtype, device=table.device)
     _common.launch(flat_take, "flat_take", "gdf_probe_flat_take", table,
                    table.numel(), idx, out, idx.numel(),
-                   FILL_BITS[table.dtype])
+                   FILL_BITS[table.dtype], slab, grid)
     return out
 
 

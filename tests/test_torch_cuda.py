@@ -702,10 +702,13 @@ def test_lane_gather(dev, rows, dtype):
     _same(gather.lane_gather(x, idx), gather.lane_gather_plain(x, idx))
 
 
-@pytest.mark.parametrize("rows", [1024, 81_920, 13])
-@pytest.mark.parametrize("table_rows", [1, 1024, 1792])
+@pytest.mark.parametrize("rows", [1024, 81_920, 13, 1])
+@pytest.mark.parametrize("table_rows", [1, 1024, 1792, 31])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
 def test_sublane_gather(dev, rows, table_rows, dtype):
+    """Row counts below one chunk, of a few chunks (every SM a chunk) and
+    at the main path's scale; tables of 1 row, an odd 31, the probe's 1024
+    and the largest slab."""
     from libgdf_tpu_torch.probes import gather
     rng = np.random.default_rng(rows + table_rows)
     x = _values(rng, table_rows * 128, dtype, dev).view(table_rows, 128)
@@ -713,17 +716,52 @@ def test_sublane_gather(dev, rows, table_rows, dtype):
     _same(gather.sublane_gather(x, idx), gather.sublane_gather_plain(x, idx))
 
 
+# flat_take's size edges: one block's slab (S words), then tables whose
+# first S words are resident and the rest read through L1 / L2
+_S = 49_152
+TAKE_EDGES = [(1,), (_S,), (_S + 1,), (2 * _S,), (2 * _S + 1,),
+              (4 * _S + 1,), (8 * _S,), (8 * _S + 1,)]
+
+
 @pytest.mark.parametrize("rows", [8192, 81_920, 13])
 @pytest.mark.parametrize("table", [(1 << 16,), (512, 128), (1000,),
-                                   (100_000,)])
+                                   (100_000,)] + TAKE_EDGES)
 def test_flat_take(dev, rows, table):
-    """The probe's 64K table (two 128 KB halves), its (512, 128) view, a
-    table of one partial slab and one of four slabs."""
+    """The probe's 64K table, its (512, 128) view, a table of one partial
+    slab, one past two slabs, and every size edge of take_plan."""
     from libgdf_tpu_torch.probes import gather
     rng = np.random.default_rng(rows)
     t = _values(rng, int(np.prod(table)), torch.float32, dev).view(table)
     idx = _gather_idx(rng, rows, t.numel(), dev)
     _same(gather.flat_take(t, idx), gather.flat_take_plain(t, idx))
+
+
+@pytest.mark.parametrize("table", [(1 << 16,), (1000,), (150_000,)] +
+                         TAKE_EDGES)
+def test_flat_take_int32_views_and_odd_counts(dev, table):
+    """int32 values; tables and indices whose data_ptr is not 16-byte
+    aligned (t[1:], idx[3:]) and index counts that are not a multiple of 4,
+    at every size edge: one launch a call, equal to the plain version."""
+    from libgdf_tpu_torch.probes import gather
+    rng = np.random.default_rng(int(np.prod(table)))
+    base = _values(rng, int(np.prod(table)) + 1, torch.int32, dev)
+    idx = _gather_idx(rng, 40, base.numel() - 1, dev).reshape(-1)
+    for t in (base[:-1].view(table), base[1:]):
+        for i in (idx, idx[3:], idx[1:6], idx[:7], idx[3:4]):
+            before = gather.flat_take.launches
+            _same(gather.flat_take(t, i), gather.flat_take_plain(t, i))
+            assert gather.flat_take.launches == before + 1
+
+
+def test_sublane_gather_unaligned_table(dev):
+    """A table whose data_ptr is not 16-byte aligned is staged by plain
+    loads, and gathers as the plain version does."""
+    from libgdf_tpu_torch.probes import gather
+    rng = np.random.default_rng(3)
+    base = _values(rng, 1024 * 128 + 1, torch.float32, dev)
+    x = base[1:].view(1024, 128)
+    idx = _gather_idx(rng, 1000, 1024, dev)
+    _same(gather.sublane_gather(x, idx), gather.sublane_gather_plain(x, idx))
 
 
 def test_sublane_gather_refuses_a_table_over_shared_memory(dev):

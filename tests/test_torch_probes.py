@@ -164,6 +164,114 @@ def test_gather_int32_fill():
     assert got[0, :3].tolist() == [-2 ** 31, 127, -2 ** 31]
 
 
+_S = gather.TAKE_SLAB_WORDS
+
+
+@pytest.mark.parametrize("n", [1, 3, 1000, _S - 1, _S, _S + 1, 1 << 16,
+                               2 * _S - 1, 2 * _S, 2 * _S + 1, 4 * _S + 1,
+                               8 * _S, 8 * _S + 1, 10 ** 7])
+def test_take_plan_routes_by_size(n):
+    """The slab each block holds is a multiple of 4 words within the
+    limit: the whole table where it fits, else the limit (the rest goes
+    through L1 / L2)."""
+    s = gather.take_plan(n)
+    assert s % 4 == 0 and s <= _S
+    assert s == _S if n > _S else n <= s < n + 4
+
+
+def test_take_plan_of_the_probes_tables():
+    assert gather.take_plan(1 << 16) == _S
+    assert gather.take_plan(512 * 128) == _S
+    assert gather.take_plan(_S) == _S
+    assert gather.take_plan(1000) == 1000
+    assert gather.take_plan(1) == 4
+
+
+@pytest.mark.parametrize("n_idx, blocks_per_sm, sms, want", [
+    (81_920 * 128, 1, 132, 132),        # persistent: the blocks that fit
+    (8192 * 128, 1, 132, 128),          # the probe's 1M indices
+    (13, 1, 132, 1),                    # one block
+    (81_920 * 128, 2, 132, 264),        # a small slab: two blocks an SM
+    (5 * 8192, 2, 132, 5),              # never more than the indices fill
+    (8192 + 1, 1, 132, 2),
+    (0, 1, 132, 1),                     # at least one
+    (81_920 * 128, 1, 114, 114)])       # another card's SMs
+def test_take_grid(n_idx, blocks_per_sm, sms, want):
+    assert gather.take_grid(n_idx, blocks_per_sm, sms) == want
+
+
+@pytest.mark.parametrize("rows", [1, 13, 1024, 8191, 81_920, 10 ** 6])
+@pytest.mark.parametrize("table_rows, blocks_per_sm", [
+    (1, 2), (31, 2), (1024, 1), (1792, 1)])
+def test_sublane_plan(rows, table_rows, blocks_per_sm):
+    """A multiple of 4 blocks, never more than fit at once nor more than
+    the (slab, chunk) pairs; chunks of whole warps' rows covering every
+    row; chunks as large as keeps every block busy."""
+    sms = 132
+    chunk, grid = gather.sublane_plan(rows, sms, blocks_per_sm)
+    k = chunk // gather.SUB_WARPS
+    chunks = -(-rows // chunk)
+    assert chunk % gather.SUB_WARPS == 0
+    assert 1 <= k <= gather.SUB_ROWS_IN_FLIGHT and k & (k - 1) == 0
+    assert grid % 4 == 0 and 4 <= grid <= sms * blocks_per_sm
+    assert grid == min(sms * blocks_per_sm // 4 * 4, 4 * chunks)
+    if k > 1:
+        assert 4 * chunks >= sms * blocks_per_sm // 4 * 4
+    if k < gather.SUB_ROWS_IN_FLIGHT:
+        assert 4 * -(-rows // (2 * chunk)) < sms * blocks_per_sm // 4 * 4
+
+
+def test_sublane_plan_at_the_probes_shapes():
+    """At the probe's 1024 rows every SM but 4 gets a chunk (a block per
+    slab and 256-row chunk would use 16); at 81,920 rows each slab is
+    staged 33 times, not 320."""
+    assert gather.sublane_plan(1024, 132, 1) == (32, 128)
+    assert gather.sublane_plan(81_920, 132, 1) == (256, 132)
+
+
+@pytest.mark.parametrize("n, slab", [(1000, 1000), (1 << 16, _S),
+                                     (2 * _S, _S), (2 * _S + 1, _S)])
+def test_flat_take_launches_the_planned_route(monkeypatch, n, slab):
+    """On a CUDA tensor the wrapper asks the occupancy of take_plan's slab
+    and launches the kernel once with it and take_grid's blocks."""
+    calls = []
+    monkeypatch.setattr(gather._common, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(gather._lib, "require_cuda",
+                        lambda what, *t: torch.device("cuda", 0))
+    monkeypatch.setattr(gather, "_sms", lambda dev: 132)
+    monkeypatch.setattr(gather, "_units",
+                        lambda index, entry, *args: calls.append(
+                            (entry, args)) or 2)
+    monkeypatch.setattr(gather._common, "launch",
+                        lambda *args: calls.append(args))
+    table = torch.zeros(n)
+    idx = torch.zeros(100_000, dtype=torch.int32)
+    gather.flat_take(table, idx)
+    (entry, args), launch = calls
+    assert entry == "gdf_probe_flat_take_occupancy" and args == (slab,)
+    assert launch[2] == "gdf_probe_flat_take"
+    assert launch[-2:] == (slab, gather.take_grid(100_000, 2, 132))
+
+
+def test_sublane_gather_launches_its_plan(monkeypatch):
+    calls = []
+    monkeypatch.setattr(gather._common, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(gather._lib, "require_cuda",
+                        lambda what, *t: torch.device("cuda", 0))
+    monkeypatch.setattr(gather, "_sms", lambda dev: 132)
+    monkeypatch.setattr(gather, "_units",
+                        lambda index, entry, *args: calls.append(
+                            (entry, args)) or 1)
+    monkeypatch.setattr(gather._common, "launch",
+                        lambda *args: calls.append(args))
+    gather.sublane_gather(torch.zeros((1024, 128)),
+                          torch.zeros((1024, 128), dtype=torch.int32))
+    (entry, args), launch = calls
+    assert entry == "gdf_probe_sublane_occupancy" and args == (1024,)
+    assert launch[2] == "gdf_probe_sublane_gather"
+    assert launch[-2:] == (32, 128)
+
+
 def test_gather_inputs_are_the_probes(probe_gather):
     """gather.probe_inputs draws what the probe's builders draw."""
     mine = gather.probe_inputs()
