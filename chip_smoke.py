@@ -94,8 +94,7 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    and to its probe's own check (every 64K block sorted and key[payload]
    the sorted keys; np.roll step by step; the gathers against numpy at
    both shapes; p3's kept rows; p6's 4096). Each kernel is timed with CUDA
-   events and torch.profiler (launches per call: 10 for the tile sort,
-   profiled one call at a time, 1 else), beside
+   events and torch.profiler (one launch a call each), beside
    its plain version and, where one PyTorch call computes the same function,
    that call; its bound is the larger of its bytes over 3.35 TB/s and its
    operations over the card's rate for their type. It prints P-1's verdict
@@ -187,7 +186,7 @@ KERNEL_NAMES = {"compact": ("compact_lookback",),
                 "scan": ("scan_lookback",),
                 "seg_scan": ("scan_lookback",),
                 "expand_fill": ("expand_fill_runs",),
-                "tile_sort": ("tile_sort_smem", "tile_sort_global"),
+                "tile_sort": ("tile_sort_cluster",),
                 "lane_gather": ("lane_gather_rows",),
                 "sublane_gather": ("sublane_gather_persistent",),
                 "flat_take": ("flat_take_resident",),
@@ -234,9 +233,8 @@ CAP_PROBES = {"P-8": "p1", "P-9": "p2", "P-10": "p3", "P-11": "p4",
 GATHER_SCALE_ROWS = 81_920      # 10.5M indices: the gathers after a sort
 COMPACT_SCALE_TILES = 40_960    # 10.5M elements of one-hot compaction
 # H100 SXM data sheet, at 700 W: float32 outside the tensor cores (the
-# rate taken for 32-bit scalar work) and int8 on the tensor cores
+# rate taken for 32-bit scalar work)
 SCALAR_OPS_PER_MS = 67e12 / 1e3
-INT8_TC_OPS_PER_MS = 1979e12 / 1e3
 
 
 def fail(msg):
@@ -1311,18 +1309,16 @@ def drive(path, run, data, dev, card):
 # -- the probe path ---------------------------------------------------------
 
 def probe_case(pn, run, plain, moved, shape, *, scale=False, library=None,
-               ops=0.0, ops_per_ms=SCALAR_OPS_PER_MS, rows=None, check=None,
-               per_call=1):
+               ops=0.0, rows=None, check=None):
     """One run of P-n's kernel: `run` and `plain` give its output and its
     plain version's, `library` (or None) one PyTorch call of the same
-    function; `moved` bytes and `ops` operations (at `ops_per_ms`) bound
-    it; `rows` of the output are specified; `check(output)` is the probe's
-    own check; a call launches `per_call` kernels."""
+    function; `moved` bytes and `ops` 32-bit operations bound it; `rows`
+    of the output are specified; `check(output)` is the probe's own
+    check."""
     return dict(key=f"{pn}@scale" if scale else pn, pn=pn,
                 wrapper=PROBE_SOURCES[pn][0], run=run, plain=plain,
-                library=library, moved=moved, ops=ops,
-                ops_per_ms=ops_per_ms, rows=rows, check=check,
-                per_call=per_call, shape=shape)
+                library=library, moved=moved, ops=ops, rows=rows,
+                check=check, shape=shape)
 
 
 def _tile_sort_check(key):
@@ -1354,7 +1350,7 @@ def make_probe_cases(dev, seed=0):
         f"the packed int64 words by block",
         library=lambda: torch.sort(words, dim=1),
         ops=2 * tilesort.stage_counts(tilesort.BLOCK, tilesort.BLOCK)[0]
-        * n / 2, check=_tile_sort_check(key), per_call=10)]
+        * n / 2, check=_tile_sort_check(key))]
     cases[0]["args"] = (key, pay)
 
     rng = np.random.default_rng(seed)
@@ -1426,9 +1422,6 @@ def make_probe_cases(dev, seed=0):
             f"probe_pallas_caps.py {name}: " + ", ".join(
                 f"{a.dtype} {tuple(a.shape)}" for a in args),
             library=lib, rows=rows,
-            ops=2 * 4 * 256 * 256 if pn == "P-10" else 0.0,
-            ops_per_ms=INT8_TC_OPS_PER_MS if pn == "P-10" else
-            SCALAR_OPS_PER_MS,
             check=lambda out, name=name, rows=rows: caps.probe_check(
                 name, out.cpu()[:rows].numpy())))
     m = COMPACT_SCALE_TILES * caps.COMPACT_TILE
@@ -1437,9 +1430,8 @@ def make_probe_cases(dev, seed=0):
     cases.append(probe_case(
         "P-10", lambda: caps.cap_onehot_compact(cx, ck),
         lambda: caps.cap_onehot_compact_plain(cx, ck), 3 * nbytes(cx),
-        f"{COMPACT_SCALE_TILES} tiles of 256 int32, half kept", scale=True,
-        ops=2 * 4 * 256 * 256 * COMPACT_SCALE_TILES,
-        ops_per_ms=INT8_TC_OPS_PER_MS))
+        f"{COMPACT_SCALE_TILES} tiles of 256 int32, half kept",
+        scale=True))
     return cases
 
 
@@ -1476,27 +1468,20 @@ def check_probe_path(cases, outs):
 
 
 def time_probe_case(c, err):
-    """Event, profiler, plain and library times of one case (and, for a
-    wrapper of several kernels, the device time of each), its bound; `err`
-    is its error against the plain version."""
+    """Event, profiler, plain and library times of one case, its bound;
+    `err` is its error against the plain version. Each wrapper call
+    launches one kernel."""
     ms = cuda_ms(c["run"])
-    # a burst of launches (P-1's 10 a call) gets a one-call window
     dev_ms, launches, acts = profiled(c["run"], KERNEL_NAMES[c["wrapper"]],
-                                      reps=1 if c["per_call"] > 1 else 5,
-                                      expect=c["per_call"])
-    if launches is not None and launches > c["per_call"]:
-        fail(f"{c['key']}: {launches} launches per call, not "
-             f"{c['per_call']} ({acts})")
-    if launches is not None and launches < c["per_call"]:
-        print(f"{c['key']}: three profiles saw {launches} of its "
-              f"{c['per_call']} launches per call; device time not "
-              f"measured", flush=True)
+                                      expect=1)
+    if launches is not None and launches > 1:
+        fail(f"{c['key']}: {launches} launches per call, not 1 ({acts})")
+    if launches is not None and launches < 1:
+        print(f"{c['key']}: three profiles saw {launches} launches per "
+              f"call; device time not measured", flush=True)
         dev_ms = None
-    names = KERNEL_NAMES[c["wrapper"]]
-    split = {n: profiled(c["run"], (n,), reps=1)[0] for n in names} \
-        if c["per_call"] > 1 else None
     by_bytes = bound_ms(c["moved"])
-    by_ops = c["ops"] / c["ops_per_ms"]
+    by_ops = c["ops"] / SCALAR_OPS_PER_MS
     lib = c["library"]
     return dict(max_abs_err=err, ms=ms, profiler_ms=dev_ms,
                 launches_per_call=launches, plain_ms=cuda_ms(c["plain"]),
@@ -1504,7 +1489,7 @@ def time_probe_case(c, err):
                 library_profiler_ms=profiled_ms(lib, ("",)) if lib else None,
                 bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations",
-                split_ms=split, shape=c["shape"])
+                shape=c["shape"])
 
 
 def run_probes(dev, card):
@@ -1527,12 +1512,8 @@ def run_probes(dev, card):
     for c in cases:
         st = time_probe_case(c, errs[c["key"]])
         print(f"kernel {c['key']} {c['wrapper']}: " + " ".join(
-            f"{k}={v}" for k, v in st.items()
-            if k not in ("shape", "split_ms")) + f" ({st['shape']}; {card})",
-            flush=True)
-        if st["split_ms"]:
-            print(f"kernel {c['key']} device ms by kernel {st['split_ms']}",
-                  flush=True)
+            f"{k}={v}" for k, v in st.items() if k != "shape")
+            + f" ({st['shape']}; {card})", flush=True)
         launches[c["pn"]] = launches.get(c["pn"], 0) + per[c["key"]]
         if c["key"] == c["pn"]:
             stats[c["pn"]] = st

@@ -7,7 +7,7 @@
 //                                     x[0, 0] + 3, output its first rows
 //   cap_cumsum2d        <- :54  `p2`  cumsum over axis 0, then axis 1
 //   cap_onehot_compact  <- :89  `p3`  stable compaction of each 256-element
-//                                     tile by a one-hot matrix product
+//                                     tile by keep != 0, zeros past the count
 //   cap_bulk_copy       <- :114 `p4`  step b stages x[8b:8b+8] + 1000 and
 //                                     copies it to out rows [5b, 5b + 8)
 //   cap_carry           <- :157 `p6`  a sum carried across 8-row tiles
@@ -19,29 +19,28 @@
 // a few KB and are bound by their launch; P-10 is bound by device memory at
 // scale (12 bytes an element).
 //
-// P-10 design: the TPU multiplies the payload, split in two 16-bit halves,
-// by a 256 x 256 one-hot matrix in float32. Here the int32 payload is split
-// into 4 byte planes (the A operand, 16 x 256 u8 with 12 rows of zeros),
-// multiplied by the 0/1 one-hot matrix (B, 256 x 256 u8, B[i][d] = 1 where
-// element i is kept and its exclusive prefix count is d) on the tensor
-// cores with wmma u8 x u8 -> s32 at m16n16k16, and the 4 result planes are
-// recombined with shifts. Each output sums at most one nonzero product, so
-// the result is exact, where TF32 or bf16 would round. A is stored
-// column-major (element i's 16 planes are one 16-byte word: its 4 bytes and
-// 12 zeros) and B as contiguous 16 x 16 tiles, so that every fragment
-// pointer is 32-byte aligned. Destinations rise with the source, so the
-// kept elements of a k-tile of 16 sources land in at most two n-tiles:
-// only the B tiles that hold a one (at most 32 of 256, flagged in shared
-// memory) are zeroed and multiplied. Kept elements past the count leave
-// zeros.
+// P-10 design: the TPU compacts a tile by multiplying it (split in two
+// 16-bit halves, in float32) by a 256 x 256 one-hot matrix: the MXU as a
+// permutation engine. That is the TPU's idiom, not the function, which is
+// a stable compaction of each 256-element tile with zeros past the count,
+// bound by device memory (12 bytes an element: 0.0376 ms at 10.5M). Here
+// one warp compacts a tile: lane l loads elements 8l .. 8l+7 of x and keep
+// as two 16-byte loads each (a coalesced 1 KB row a warp, in source
+// order), counts its kept ones, and a 5-step __shfl_up_sync scan gives its
+// first destination; it writes its kept values into the warp's 1 KB
+// staging row in shared memory, and after __syncwarp() every lane reads
+// its 8 output slots back, zero at or past the warp's total, and stores
+// them as 16 bytes twice. No block barrier, no tensor core. A persistent
+// grid (the blocks the SMs hold at once, no more than the tiles fill)
+// strides over the tiles, a warp a tile at a time; pointers that are not
+// all 16-byte aligned (a view at an odd offset) take 4-byte loads and
+// stores instead.
 //
 // P-11 design: one CUDA block loops over the steps (the TPU's sequential
 // grid) with the row offset carried in a register; each step's staged rows
 // go from shared to device memory with one cp.async.bulk (a 512-byte row
 // keeps address and size 16-byte aligned), completed before the next step
 // so that a later step's rows overwrite an earlier one's, as on the TPU.
-#include <mma.h>
-
 #include "common.cuh"
 
 namespace {
@@ -55,10 +54,8 @@ constexpr int kCumRows = 64;                    // p2's tile, at most
 constexpr int kCompactTile = 256;               // p3's tile
 constexpr int kStepRows = 8;                    // p4's and p6's tile rows
 constexpr int kStepAdvance = 5;                 // p4's offset per step
-constexpr size_t kCompactSmem =
-    kCompactTile * kCompactTile                 // B, u8
-    + 16 * kCompactTile                         // A, u8
-    + 16 * kCompactTile * sizeof(int);          // C, s32: 84 KB in all
+constexpr int kMaxDevices = 16;
+constexpr int kCompactPerLane = kCompactTile / 32;   // 8 elements a lane
 
 __global__ void __launch_bounds__(kThreads)
 cap_dyn_store(const int* __restrict__ x, int* __restrict__ out, int rows) {
@@ -113,59 +110,68 @@ cap_cumsum2d(const int* __restrict__ x, int* __restrict__ out, int rows) {
   }
 }
 
+template <bool kVec>
+__device__ __forceinline__ void load8(const int* p, int (&v)[kCompactPerLane]) {
+  if (kVec) {
+    const int4 a = reinterpret_cast<const int4*>(p)[0];
+    const int4 b = reinterpret_cast<const int4*>(p)[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kCompactPerLane; ++i) v[i] = p[i];
+  }
+}
+
+// One warp a 256-element tile, grid-striding over `tiles` tiles.
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 cap_onehot_compact(const int* __restrict__ x, const int* __restrict__ keep,
-                   int* __restrict__ out) {
-  using namespace nvcuda;
-  static_assert(kThreads == kCompactTile, "one thread per element");
-  extern __shared__ __align__(128) unsigned char s_mem[];
-  unsigned char* s_b = s_mem;                            // 16 x 16 tiles
-  unsigned char* s_a = s_b + kCompactTile * kCompactTile;  // column-major
-  int* s_c = reinterpret_cast<int*>(s_a + 16 * kCompactTile);
-  __shared__ int warp_tot[kWarps];
-  __shared__ unsigned char s_nz[16 * 16];       // B tile (kt, nt) holds a 1
-  const long long base = (long long)blockIdx.x * kCompactTile;
-  const int i = threadIdx.x;
-  const int v = x[base + i];
-  const int k = keep[base + i] != 0;
-  s_nz[i] = 0;
-  int total;
-  const int dest = gdf::block_exclusive_sum(k, warp_tot, &total);
-  if (k) s_nz[(i >> 4) * 16 + (dest >> 4)] = 1;
-  reinterpret_cast<int4*>(s_a)[i] = make_int4(v, 0, 0, 0);  // 16 planes of i
-  __syncthreads();
-  int4* b4 = reinterpret_cast<int4*>(s_b);
-  for (int e = i; e < kCompactTile * kCompactTile / 16; e += kThreads) {
-    if (s_nz[e >> 4]) b4[e] = make_int4(0, 0, 0, 0);
-  }
-  __syncthreads();
-  if (k) {
-    s_b[((i >> 4) * 16 + (dest >> 4)) * 256 + (i & 15) * 16 + (dest & 15)] =
-        1;
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, unsigned char, wmma::col_major>
-      fa;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, unsigned char, wmma::row_major>
-      fb;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> fc;
-  for (int nt = warp; nt < 16; nt += kWarps) {
-    wmma::fill_fragment(fc, 0);
-    for (int kt = 0; kt < 16; ++kt) {
-      if (!s_nz[kt * 16 + nt]) continue;        // the same for the warp
-      wmma::load_matrix_sync(fa, s_a + kt * 256, 16);
-      wmma::load_matrix_sync(fb, s_b + (kt * 16 + nt) * 256, 16);
-      wmma::mma_sync(fc, fa, fb, fc);
+                   int* __restrict__ out, long long tiles) {
+  __shared__ __align__(16) int s_row[kWarps][kCompactTile];
+  const int lane = threadIdx.x & 31;
+  int* row = s_row[threadIdx.x >> 5];
+  const long long stride = (long long)gridDim.x * kWarps;
+  for (long long tile = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       tile < tiles; tile += stride) {
+    const long long at = tile * kCompactTile + lane * kCompactPerLane;
+    int v[kCompactPerLane], k[kCompactPerLane];
+    load8<kVec>(x + at, v);
+    load8<kVec>(keep + at, k);
+    unsigned kept = 0;
+#pragma unroll
+    for (int i = 0; i < kCompactPerLane; ++i) kept |= (k[i] != 0) << i;
+    const int count = __popc(kept);
+    int inc = count;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, inc, d);
+      if (lane >= d) inc += y;
     }
-    wmma::store_matrix_sync(s_c + nt * 16, fc, kCompactTile,
-                            wmma::mem_row_major);
+    const int total = __shfl_sync(0xffffffffu, inc, 31);
+    int dest = inc - count;
+#pragma unroll
+    for (int i = 0; i < kCompactPerLane; ++i) {
+      if (kept >> i & 1) row[dest++] = v[i];
+    }
+    __syncwarp();
+    const int first = lane * kCompactPerLane;
+    int o[kCompactPerLane];
+    load8<true>(row + first, o);
+#pragma unroll
+    for (int i = 0; i < kCompactPerLane; ++i) {
+      if (first + i >= total) o[i] = 0;
+    }
+    if (kVec) {
+      int4* o4 = reinterpret_cast<int4*>(out + at);
+      o4[0] = make_int4(o[0], o[1], o[2], o[3]);
+      o4[1] = make_int4(o[4], o[5], o[6], o[7]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kCompactPerLane; ++i) out[at + i] = o[i];
+    }
+    __syncwarp();                       // the row is read before reuse
   }
-  __syncthreads();
-  const unsigned w = (unsigned)s_c[i] | (unsigned)s_c[kCompactTile + i] << 8 |
-                     (unsigned)s_c[2 * kCompactTile + i] << 16 |
-                     (unsigned)s_c[3 * kCompactTile + i] << 24;
-  out[base + i] = (int)w;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -235,6 +241,10 @@ cudaStream_t as_stream(void* stream) {
   return static_cast<cudaStream_t>(stream);
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -262,19 +272,39 @@ int gdf_probe_cap_cumsum2d(const void* x, void* out, int rows,
 }
 
 // x, keep, out int32 (n,), n a multiple of 256; each 256-element tile is
-// compacted on its own.
+// compacted on its own. Any 4-byte alignment.
 int gdf_probe_cap_onehot_compact(const void* x, const void* keep, void* out,
                                  long long n, void* stream) {
   if (n < 0 || n % kCompactTile != 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      cap_onehot_compact, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kCompactSmem);
+  const bool vec = aligned16(x) && aligned16(keep) && aligned16(out);
+  auto* kernel = vec ? &cap_onehot_compact<true> : &cap_onehot_compact<false>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  cap_onehot_compact<<<(unsigned)(n / kCompactTile), kThreads, kCompactSmem,
-                       as_stream(stream)>>>(
-      static_cast<const int*>(x), static_cast<const int*>(keep),
-      static_cast<int*>(out));
+  // blocks an SM holds and SMs, asked once a card and kernel
+  static int occupancy[kMaxDevices][2][2] = {};
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  int* occ = occupancy[dev][vec];
+  if (occ[0] == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ[0], kernel,
+                                                        kThreads, 0);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&occ[1], cudaDevAttrMultiProcessorCount,
+                                   dev);
+    }
+    if (err != cudaSuccess || occ[0] <= 0) {
+      occ[0] = 0;
+      return (int)(err != cudaSuccess ? err : cudaErrorInvalidConfiguration);
+    }
+  }
+  const long long tiles = n / kCompactTile;
+  const long long fill = (tiles + kWarps - 1) / kWarps;
+  const long long most = (long long)occ[0] * occ[1];
+  kernel<<<(unsigned)(fill < most ? fill : most), kThreads, 0,
+           as_stream(stream)>>>(static_cast<const int*>(x),
+                                static_cast<const int*>(keep),
+                                static_cast<int*>(out), tiles);
   GDF_LAUNCH_CHECK();
   return 0;
 }

@@ -48,6 +48,7 @@ _SIGNATURES = {
     "gdf_expand_max_words": (_I, []),
     "gdf_expand_fill": (_I, [_P, _I64, _I64, _I, _PP, _PP, _PI, _P]),
     # the cost probes (libgdf_tpu_torch/probes/)
+    "gdf_probe_tile_sort_clusters": (_I, [_PI]),
     "gdf_probe_tile_sort": (_I, [_P, _P, _P, _P, _I64, _P]),
     "gdf_probe_lane_gather": (_I, [_P, _P, _P, _I64, _I, _P]),
     "gdf_probe_sublane_occupancy": (_I, [_I, _PI]),

@@ -1,8 +1,11 @@
 """What the probes' wrappers and `main`s share: the launch of a C entry
-point, the device a `main` runs on, and its timer."""
+point, its occupancy queries, the device a `main` runs on, and its
+timer."""
 from __future__ import annotations
 
 import argparse
+import ctypes
+import functools
 import sys
 import time
 
@@ -23,6 +26,17 @@ def launch(wrapper, what: str, entry: str, *args) -> None:
         _lib.check(fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
                         for a in args], _lib.stream_ptr(dev)), what)
     _lib.count_launch(wrapper)
+
+
+@functools.lru_cache(maxsize=None)
+def units(device_index: int, entry: str, *args) -> int:
+    """What occupancy query `entry` of the kernel library answers for its
+    arguments on the card `device_index` (one call per key)."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _lib.check(getattr(_lib.lib(), entry)(*args, ctypes.byref(out)),
+                   entry)
+    return out.value
 
 
 def on_cpu(*tensors) -> bool:

@@ -9,9 +9,12 @@ what its probe computes (P-12, `p5`, is `gather.lane_gather` at int32):
                           scratch raises, as the probe's store does in
                           interpret mode); out = its first rows
   cap_cumsum2d        p2  cumsum over axis 0, then over axis 1
-  cap_onehot_compact  p3  stable compaction of each 256-element tile by a
-                          one-hot matrix product on the tensor cores (u8
-                          byte planes, s32 sums: exact); the tail is 0
+  cap_onehot_compact  p3  stable compaction of each 256-element tile (the
+                          TPU's one-hot matrix product), a warp a tile: a
+                          scan of the lanes' kept counts, a staging row in
+                          shared memory; the tail is 0; any 4-byte
+                          alignment (16-byte loads where all three
+                          pointers allow)
   cap_bulk_copy       p4  step b stages x[8b:8b+8] + 1000 and copies it to
                           out rows [5b, 5b + 8) with cp.async.bulk; rows past
                           5 (steps - 1) + 8 are not written (nor on the TPU)

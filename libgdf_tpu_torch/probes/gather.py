@@ -25,8 +25,6 @@ on the probe's inputs (drawn as the probe draws them).
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 import sys
 
 import numpy as np
@@ -120,15 +118,7 @@ def sublane_plan(rows: int, sms: int, blocks_per_sm: int):
     return chunk, min(most, 4 * -(-rows // chunk))
 
 
-@functools.lru_cache(maxsize=None)
-def _units(device_index: int, entry: str, *args) -> int:
-    """What occupancy query `entry` of the kernel library answers for its
-    arguments on the card `device_index` (one call per key)."""
-    units = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        _lib.check(getattr(_lib.lib(), entry)(*args, ctypes.byref(units)),
-                   entry)
-    return units.value
+_units = _common.units
 
 
 def _sms(dev: torch.device) -> int:

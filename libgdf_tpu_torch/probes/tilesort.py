@@ -12,9 +12,12 @@ free), so its rate is estimated as
     full-sort rows/s ~= tile_rate * tile_stages / in_block_stages * n / npad
 
 (`stage_counts`: 136 / 264 / 36 for 2^24 elements). The kernel
-(`csrc/probe_tilesort.cu`) is ten launches: 8192-element tiles in shared
-memory, six device-memory passes at partner distances of 8192 and over,
-three more tile launches.
+(`csrc/probe_tilesort.cu`) is one launch of 4-CTA thread-block clusters,
+a cluster per block: each CTA holds a 16,384-element tile as 32 packed
+words in each of 512 threads' registers, runs every stage there, uses
+shared memory only to move words between threads (a change of layout,
+`schedule`) and reads a peer CTA's shared memory for the three stages
+across tiles.
 
     python -m libgdf_tpu_torch.probes.tilesort [n] [--device cpu]
 
@@ -29,10 +32,13 @@ from __future__ import annotations
 import json
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..core.errors import GDFError, GDFStatus
+from ..ops.kernels import _lib
 from . import _common
 
 LANES = 128
@@ -41,6 +47,11 @@ BLOCK = ROWS * LANES            # 65,536 elements per sorted block
 K = BLOCK.bit_length() - 1      # 16
 DEFAULT_N = 11 * 2 ** 20
 KEEP_MARGIN = 1.3
+# the kernel's geometry: a 4-CTA cluster a block, 2^14 elements a CTA,
+# 2^5 words a thread
+TILE_LOG, REG_LOG = 14, 5
+THREADS = 2 ** (TILE_LOG - REG_LOG)
+CROSS = (0, 10, 11, 12, 13)     # register bits of the layout across tiles
 
 
 def stage_counts(block: int = BLOCK, npad: int = 2 ** 24):
@@ -51,6 +62,65 @@ def stage_counts(block: int = BLOCK, npad: int = 2 ** 24):
     m = npad.bit_length() - 1
     tile = k * (k + 1) // 2
     return tile, tile + (m - k) * k, (m - k) * (m - k + 1) // 2
+
+
+class Phase(NamedTuple):
+    """A phase of the kernel: `where` is "registers" (each stage between
+    two of a thread's registers) or "cluster" (the stage across tiles,
+    each word against the word at the same index of a peer CTA); `layout`
+    holds the tile's index bits that are register bits, in register-bit
+    order (the thread has the others, in order). Words change layout
+    through shared memory between phases of different layouts; a cluster
+    phase reads them from shared memory in its layout."""
+    where: str
+    layout: tuple
+    stages: list
+
+
+def window(base: int) -> tuple:
+    return tuple(range(base, base + REG_LOG))
+
+
+def schedule() -> list:
+    """P-1's 136 stages (k, j), size 2^k at distance 2^j, as
+    `csrc/probe_tilesort.cu` runs them, in phases (`Phase`): sizes 2 .. 32
+    in window 0; each size up to the tile in layouts of 5 index bits from
+    its top stage down; each size past the tile a cluster stage per bit
+    above the tile, then its 14 stages in the tile."""
+    phases = [Phase("registers", window(0),
+                    [(k, j) for k in range(1, REG_LOG + 1)
+                     for j in range(k - 1, -1, -1)])]
+    for k in range(REG_LOG + 1, TILE_LOG + 1):
+        for hi in range(k - 1, -1, -REG_LOG):
+            base = max(hi - (REG_LOG - 1), 0)
+            phases.append(Phase("registers", window(base),
+                                [(k, j) for j in range(hi, base - 1, -1)]))
+    for k in range(TILE_LOG + 1, K + 1):
+        for j in range(k - 1, TILE_LOG - 1, -1):
+            phases.append(Phase("cluster", CROSS, [(k, j)]))
+        for layout, hi, lo in ((CROSS, 13, 10), (window(5), 9, 5),
+                               (window(0), 4, 0)):
+            phases.append(Phase("registers", layout,
+                                [(k, j) for j in range(hi, lo - 1, -1)]))
+    return phases
+
+
+def layout_index(layout: tuple) -> np.ndarray:
+    """(THREADS, 2^REG_LOG) tile index of thread t's register e."""
+    t = np.arange(THREADS)[:, None]
+    e = np.arange(2 ** REG_LOG)[None, :]
+    idx = np.zeros((THREADS, 2 ** REG_LOG), dtype=np.int64)
+    for r, bit in enumerate(layout):
+        idx |= (e >> r & 1) << bit
+    rest = [b for b in range(TILE_LOG) if b not in layout]
+    for r, bit in enumerate(rest):
+        idx |= (t >> r & 1) << bit
+    return idx
+
+
+def slot(i):
+    """Shared-memory slot of tile index i (8-byte words)."""
+    return i ^ (i >> 5 & 15)
 
 
 def pack(key: torch.Tensor, pay: torch.Tensor) -> torch.Tensor:
@@ -88,8 +158,14 @@ def tile_sort(key: torch.Tensor, pay: torch.Tensor):
     n = _check(key, pay)
     if _common.on_cpu(key, pay):
         return tile_sort_plain(key, pay)
+    dev = _lib.require_cuda("tile_sort", key, pay)
     ko, po = torch.empty_like(key), torch.empty_like(pay)
     if n:
+        if _common.units(dev.index, "gdf_probe_tile_sort_clusters") == 0:
+            raise GDFError(GDFStatus.GDF_CUDA_ERROR,
+                           f"tile_sort: {torch.cuda.get_device_name(dev)} "
+                           f"cannot schedule a cluster of 4 CTAs with "
+                           f"128 KB of shared memory each")
         _common.launch(tile_sort, "tile_sort", "gdf_probe_tile_sort", key,
                        pay, ko, po, n)
     return ko, po

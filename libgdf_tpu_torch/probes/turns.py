@@ -1,6 +1,7 @@
-"""Time the gathers of this checkout and of another one in turns, on one card.
+"""Time probe kernels of this checkout and of another one in turns, on one card.
 
     python -m libgdf_tpu_torch.probes.turns OTHER [--reps 20] [--rounds 2]
+        [--cases P-1,P-10]
 
 OTHER is an unpacked copy of another commit (for the parent:
 `git archive HEAD`) in a git-ignored directory such as `build/parent`. Its
@@ -8,18 +9,23 @@ package is imported whole under another name, so its own wrappers call
 its own kernel library with its own C signatures; that library is built
 from OTHER/libgdf_tpu_torch/csrc into OTHER/build/kernels.
 
-For P-3 (`sublane_gather`), P-4 (`flat_take` of the 64K table) and P-5
-(`flat_take` of the (512, 128) table), on the inputs of `chip_smoke.py`'s
-probe path (the probe's own, and 81,920 x 128 indices), both builds must
-equal the plain version exactly. Then, per round, the two are timed in
-turns (other, this, this, other): CUDA-event ms per call over `reps`
-back-to-back calls, and device ms per call from torch.profiler over every
-kernel in the window (each wrapper call launches one). The plain version
-and the library call (`torch.take_along_dim`, or indexing, on int64
-indices) are timed once; the bound is the bytes read once and written
-once over the H100's 3.35 TB/s. It prints the card line, one line per
-case and a JSON line of every number; it exits 1 without CUDA or if a
-check fails.
+The cases, on the inputs of `chip_smoke.py`'s probe path: P-1
+(`tile_sort` of 11,534,336 pairs), P-3 (`sublane_gather`), P-4
+(`flat_take` of the 64K table) and P-5 (`flat_take` of the (512, 128)
+table) at the probe's own shapes and at 81,920 x 128 indices, and P-10
+(`cap_onehot_compact`) at the probe's 256 elements and at 40,960 tiles of
+256. `--cases` keeps those whose name (before any "@") is listed. Both
+builds must equal the plain version exactly. Then, per round, the two are
+timed in turns (other, this, this, other): CUDA-event ms per call over
+`reps` back-to-back calls, and device ms per call from torch.profiler over
+every kernel in the window, with the kernels the profile saw per call (a
+profile that drops records shows fewer than the build launches). The plain
+version and the library call (for the gathers `torch.take_along_dim`, or
+indexing, on int64 indices; for P-1 `torch.sort` of the packed words by
+block; for P-10 `x[keep]` padded with zeros) are timed once; the bound is
+the bytes read once and written once over the H100's 3.35 TB/s. It prints
+the card line, one line per case and a JSON line of every number; it exits
+1 without CUDA or if a check fails.
 """
 from __future__ import annotations
 
@@ -34,17 +40,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import gather
+from . import caps, gather, tilesort
 
 HBM_BYTES_PER_MS = 3.35e12 / 1e3        # H100 SXM data sheet, at 700 W
 SCALE_ROWS = 81_920
+COMPACT_SCALE_TILES = 40_960
 LIBRARY = {"sublane": lambda x, i64: torch.take_along_dim(x, i64, 0),
            "flat": lambda t, i64: t.reshape(-1)[i64]}
 
 
-def other_gather(root: Path):
-    """The `probes.gather` module of the package under `root`, imported
-    as `libgdf_tpu_torch_other`."""
+def other_probes(root: Path) -> dict:
+    """{module: the module of `probes` of the package under `root`}, the
+    package imported as `libgdf_tpu_torch_other`."""
     name = "libgdf_tpu_torch_other"
     init = root / "libgdf_tpu_torch" / "__init__.py"
     spec = importlib.util.spec_from_file_location(
@@ -52,15 +59,38 @@ def other_gather(root: Path):
     pkg = importlib.util.module_from_spec(spec)
     sys.modules[name] = pkg
     spec.loader.exec_module(pkg)
-    return importlib.import_module(f"{name}.probes.gather")
+    return {mod: importlib.import_module(f"{name}.probes.{mod}")
+            for mod in ("caps", "gather", "tilesort")}
 
 
-def cases(dev: torch.device, seed: int = 0) -> list:
-    """[(key, kind, x, idx)]: P-3, P-4, P-5 at the probe's shapes and at
-    SCALE_ROWS x 128 indices, drawn as chip_smoke.py's probe path draws
-    them (the lane gather's draws included, then dropped)."""
-    rng = np.random.default_rng(seed)
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _case(key, shapes, this, other, plain, library, moved):
+    return {"key": key, "shapes": shapes, "this": this, "other": other,
+            "plain": plain, "library": library,
+            "bound_ms": moved / HBM_BYTES_PER_MS}
+
+
+def cases(dev: torch.device, old: dict, seed: int = 0) -> list:
+    """P-1, the gathers P-3, P-4, P-5 and P-10, drawn as chip_smoke.py's
+    probe path draws them (the lane gather's draws included, then
+    dropped)."""
     out = []
+    n = tilesort.DEFAULT_N
+    key = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 2 ** 31 - 1, n).astype(np.int32), device=dev)
+    pay = torch.arange(n, dtype=torch.int32, device=dev)
+    words = tilesort.pack(key, pay).view(-1, tilesort.BLOCK)
+    out.append(_case(
+        "P-1", f"{n} int32 key + payload",
+        lambda: tilesort.tile_sort(key, pay),
+        lambda f=old["tilesort"].tile_sort: f(key, pay),
+        lambda: tilesort.tile_sort_plain(key, pay),
+        lambda: torch.sort(words, dim=1), 2 * _nbytes(key, pay)))
+
+    rng = np.random.default_rng(seed)
     for i, (_, kind, x, idx) in enumerate(gather.probe_inputs()):
         size = {"lane": 128, "sublane": x.shape[0], "flat": x.size}[kind]
         big = rng.integers(0, size, (SCALE_ROWS, 128)).astype(np.int32)
@@ -69,9 +99,46 @@ def cases(dev: torch.device, seed: int = 0) -> list:
             continue
         pn = "P-3" if kind == "sublane" else "P-4" if i == 2 else "P-5"
         xt = torch.as_tensor(x, device=dev)
-        out += [(pn, kind, xt, torch.as_tensor(idx, device=dev)),
-                (f"{pn}@scale", kind, xt, torch.as_tensor(big, device=dev))]
+        for k, it in ((pn, torch.as_tensor(idx, device=dev)),
+                      (f"{pn}@scale", torch.as_tensor(big, device=dev))):
+            i64 = it.long()
+            out.append(_case(
+                k, f"x {tuple(xt.shape)}, idx {tuple(it.shape)}",
+                lambda f=gather.GATHERS[kind], xt=xt, it=it: f(xt, it),
+                lambda f=old["gather"].GATHERS[kind], xt=xt, it=it:
+                f(xt, it),
+                lambda f=gather.PLAIN[kind], xt=xt, it=it: f(xt, it),
+                lambda f=LIBRARY[kind], xt=xt, i64=i64: f(xt, i64),
+                _nbytes(xt) + 2 * _nbytes(it)))
+
+    px, pk = (torch.as_tensor(a, device=dev)
+              for a in caps.probe_inputs()["p3"])
+    m = COMPACT_SCALE_TILES * caps.COMPACT_TILE
+    cx = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, m).astype(np.int32),
+                         device=dev)
+    ck = torch.as_tensor((rng.random(m) < 0.5).astype(np.int32), device=dev)
+    for k, x, keep in (("P-10", px, pk), ("P-10@scale", cx, ck)):
+        def library(x=x, keep=keep):
+            got = torch.zeros_like(x).view(-1)
+            kept = x.view(-1)[keep.view(-1) != 0]
+            got[:kept.numel()] = kept
+            return got
+        out.append(_case(
+            k, f"x, keep {tuple(x.shape)} int32",
+            lambda x=x, keep=keep: caps.cap_onehot_compact(x, keep),
+            lambda f=old["caps"].cap_onehot_compact, x=x, keep=keep:
+            f(x, keep),
+            lambda x=x, keep=keep: caps.cap_onehot_compact_plain(x, keep),
+            library, 3 * _nbytes(x)))
     return out
+
+
+def _equal(got, want) -> bool:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return all(bool(((g == w) | (torch.isnan(g) & torch.isnan(w))).all())
+               if g.is_floating_point() else torch.equal(g, w)
+               for g, w in zip(got, want))
 
 
 def event_ms(fn, reps: int) -> float:
@@ -88,8 +155,8 @@ def event_ms(fn, reps: int) -> float:
 
 
 def device_ms(fn, reps: int):
-    """Device ms per call of every kernel in the window, from
-    torch.profiler; None if three profiles saw none."""
+    """(device ms per call of every kernel in the window, kernels seen per
+    call) from torch.profiler; (None, 0) if three profiles saw none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -99,12 +166,13 @@ def device_ms(fn, reps: int):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
         us = sum(getattr(e, "self_device_time_total", None) or
-                 e.self_cuda_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
+                 e.self_cuda_time_total for e in events)
         if us:
-            return us / reps / 1e3
-    return None
+            return us / reps / 1e3, sum(e.count for e in events) / reps
+    return None, 0
 
 
 def card_line() -> str:
@@ -114,15 +182,22 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def _fmt(values) -> str:
+    return ",".join(f"{v:.4f}" if v is not None else "None" for v in values)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m libgdf_tpu_torch.probes.turns",
-        description="The gathers of this checkout and another, timed in "
+        description="Probe kernels of this checkout and another, timed in "
                     "turns on one card.")
     ap.add_argument("other", type=Path,
                     help="an unpacked copy of another commit")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--cases", default=None,
+                    help="comma-separated names (P-1, P-3, P-4, P-5, P-10); "
+                         "default all")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("turns: CUDA is not available", file=sys.stderr)
@@ -130,45 +205,41 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     print(card, flush=True)
-    old = other_gather(args.other.resolve())
+    old = other_probes(args.other.resolve())
+    keep = set(args.cases.split(",")) if args.cases else None
     results = []
-    for key, kind, x, idx in cases(dev):
-        want = gather.PLAIN[kind](x, idx)
-        runs = {"other": lambda f=old.GATHERS[kind]: f(x, idx),
-                "this": lambda f=gather.GATHERS[kind]: f(x, idx)}
+    for c in cases(dev, old):
+        if keep is not None and c["key"].split("@")[0] not in keep:
+            continue
+        want = c["plain"]()
+        runs = {"other": c["other"], "this": c["this"]}
         for who, fn in runs.items():
-            got = fn()
-            same = (got == want) | (torch.isnan(got) & torch.isnan(want))
-            if not bool(same.all()):
-                print(f"{key}: the {who} build differs from the plain "
+            if not _equal(fn(), want):
+                print(f"{c['key']}: the {who} build differs from the plain "
                       f"version", file=sys.stderr)
                 return 1
-        times = {who: {"event_ms": [], "device_ms": []} for who in runs}
+        del want
+        times = {who: {"event_ms": [], "device_ms": [],
+                       "kernels_per_call": []} for who in runs}
         for _ in range(args.rounds):
             for who in ("other", "this", "this", "other"):
                 times[who]["event_ms"].append(event_ms(runs[who], args.reps))
-                times[who]["device_ms"].append(device_ms(runs[who],
-                                                         args.reps))
-        i64 = idx.long()
-        row = {"case": key, "x": list(x.shape), "idx": list(idx.shape),
-               **times,
-               "plain_ms": event_ms(lambda: gather.PLAIN[kind](x, idx),
-                                    args.reps),
-               "library_ms": event_ms(lambda: LIBRARY[kind](x, i64),
-                                      args.reps),
-               "library_device_ms": device_ms(
-                   lambda: LIBRARY[kind](x, i64), args.reps),
-               "bound_ms": (x.numel() + 2 * idx.numel()) * 4
-               / HBM_BYTES_PER_MS}
+                ms, seen = device_ms(runs[who], args.reps)
+                times[who]["device_ms"].append(ms)
+                times[who]["kernels_per_call"].append(seen)
+        lib_ms, _ = device_ms(c["library"], args.reps)
+        row = {"case": c["key"], "shapes": c["shapes"], **times,
+               "plain_ms": event_ms(c["plain"], args.reps),
+               "library_ms": event_ms(c["library"], args.reps),
+               "library_device_ms": lib_ms, "bound_ms": c["bound_ms"]}
         results.append(row)
-        print(f"{key}: " + " ".join(
-            f"{who}_{m}=" + ",".join(f"{v:.4f}" if v is not None else "None"
-                                     for v in times[who][m])
-            for who in runs for m in ("device_ms", "event_ms"))
+        print(f"{c['key']}: " + " ".join(
+            f"{who}_{m}=" + _fmt(times[who][m])
+            for who in runs for m in ("device_ms", "event_ms",
+                                      "kernels_per_call"))
             + f" plain_ms={row['plain_ms']:.4f} library_ms="
-            f"{row['library_ms']:.4f} library_device_ms="
-            f"{row['library_device_ms']} bound_ms={row['bound_ms']:.4f} "
-            f"({card})", flush=True)
+            f"{row['library_ms']:.4f} library_device_ms={lib_ms} "
+            f"bound_ms={row['bound_ms']:.4f} ({card})", flush=True)
     print(json.dumps({"turns": results, "card": card}), flush=True)
     return 0
 

@@ -683,6 +683,99 @@ def test_tile_sort_ties(dev):
         np.testing.assert_array_equal(po[s].cpu().numpy(), pay[s][order])
 
 
+@pytest.mark.parametrize("case", ["sorted", "reverse", "equal",
+                                  "extremes"])
+def test_tile_sort_edge_blocks(dev, case):
+    """Sorted, reverse-sorted and all-equal blocks, and full-range signed
+    keys with payloads at INT32_MIN / INT32_MAX, over 4 blocks."""
+    from libgdf_tpu_torch.probes import tilesort
+    n = 4 * tilesort.BLOCK
+    rng = np.random.default_rng(3)
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    iota = np.arange(n, dtype=np.int32)
+    key, pay = {
+        "sorted": (iota, iota),
+        "reverse": (iota[::-1].copy(), iota),
+        "equal": (np.full(n, 7, np.int32),
+                  rng.permutation(n).astype(np.int32)),
+        "extremes": (rng.integers(lo, hi + 1, n, dtype=np.int64)
+                     .astype(np.int32),
+                     rng.choice(np.array([lo, hi], np.int32), n)),
+    }[case]
+    if case == "extremes":
+        key[:8] = [lo, hi, lo, hi, -1, 0, lo, hi]
+    k, p = torch.as_tensor(key, device=dev), torch.as_tensor(pay, device=dev)
+    ko, po = tilesort.tile_sort(k, p)
+    wk, wp = tilesort.tile_sort_plain(k, p)
+    _same(ko, wk)
+    _same(po, wp)
+
+
+def test_tile_sort_rejects_ragged_n_on_the_card(dev):
+    from libgdf_tpu_torch.probes import tilesort
+    x = torch.zeros(tilesort.BLOCK + 128, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 65536"):
+        tilesort.tile_sort(x, x)
+
+
+def test_tile_sort_is_one_cluster_launch(dev):
+    """A wrapper call counts one launch and runs exactly one kernel, the
+    cluster sort, on a card that holds at least one 4-CTA cluster."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from libgdf_tpu_torch.probes import _common, tilesort
+    assert _common.units(dev.index or 0,
+                         "gdf_probe_tile_sort_clusters") > 0
+    x = torch.arange(2 * tilesort.BLOCK, dtype=torch.int32, device=dev)
+    tilesort.tile_sort(x, x)
+    torch.cuda.synchronize()
+    before = tilesort.tile_sort.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tilesort.tile_sort(x, x)
+        torch.cuda.synchronize()
+    assert tilesort.tile_sort.launches == before + 1
+    kernels_run = {e.key: e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA}
+    if kernels_run:                      # a profile may lose its events
+        assert sum(kernels_run.values()) == 1, kernels_run
+        assert all("tile_sort_cluster" in k for k in kernels_run)
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 40_960])
+@pytest.mark.parametrize("mask", ["none", "all", "first", "last",
+                                  "alternating"])
+def test_onehot_compact_edge_masks(dev, tiles, mask):
+    from libgdf_tpu_torch.probes import caps
+    rng = np.random.default_rng(tiles)
+    m = tiles * 256
+    pos = np.arange(m) % 256
+    keep = {"none": pos < 0, "all": pos >= 0, "first": pos == 0,
+            "last": pos == 255, "alternating": pos % 2 == 1}[mask]
+    x = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, m).astype(np.int32),
+                        device=dev)
+    k = torch.as_tensor(keep.astype(np.int32), device=dev)
+    _same(caps.cap_onehot_compact(x, k), caps.cap_onehot_compact_plain(x, k))
+
+
+def test_onehot_compact_empty_and_unaligned(dev):
+    """n = 0 launches nothing; views at a 4-byte offset (not 16-byte
+    aligned) are taken, through 4-byte loads and stores."""
+    from libgdf_tpu_torch.probes import caps
+    e = torch.empty(0, dtype=torch.int32, device=dev)
+    assert caps.cap_onehot_compact(e, e).shape == (0,)
+    rng = np.random.default_rng(9)
+    m = 5 * 256
+    xb = torch.as_tensor(rng.integers(-99, 99, m + 3).astype(np.int32),
+                         device=dev)
+    kb = torch.as_tensor((rng.random(m + 3) < 0.4).astype(np.int32),
+                         device=dev)
+    for off in (1, 2, 3):
+        x, k = xb[off:off + m], kb[3 - off:3 - off + m]
+        assert x.data_ptr() % 16 or k.data_ptr() % 16
+        _same(caps.cap_onehot_compact(x, k),
+              caps.cap_onehot_compact_plain(x, k))
+
+
 def _gather_idx(rng, rows, size, dev):
     """Random indices with 0 and size - 1 in every row, and a few that
     count from the end or fall outside the table."""

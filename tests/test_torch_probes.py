@@ -22,7 +22,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from libgdf_tpu_torch import probes
-from libgdf_tpu_torch.probes import caps, gather, roll, tilesort
+from libgdf_tpu_torch.probes import caps, gather, roll, tilesort, turns
 
 BENCH = Path(__file__).resolve().parents[1] / "benchmarks"
 
@@ -113,6 +113,139 @@ def test_tile_sort_rejects_ragged_n():
         tilesort.tile_sort(x, x)
     with pytest.raises(TypeError):
         tilesort.tile_sort(x.long(), x.long())
+
+
+def _network():
+    return [(k, j) for k in range(1, tilesort.K + 1)
+            for j in range(k - 1, -1, -1)]
+
+
+def test_tile_sort_schedule_covers_the_network():
+    """The kernel's schedule runs each of the 136 stages once, in network
+    order: registers for every stage inside a 16K tile (each at a register
+    bit of its layout), the cluster for the three across tiles, and 29
+    shared-memory round trips (28 changes of layout and the second
+    exchange of size 2^16)."""
+    phases = tilesort.schedule()
+    stages = [st for ph in phases for st in ph.stages]
+    assert stages == _network() and len(stages) == 136
+    assert [ph.stages for ph in phases if ph.where == "cluster"] == \
+        [[(15, 14)], [(16, 15)], [(16, 14)]]
+    for ph in phases:
+        assert ph.where in ("registers", "cluster")
+        assert len(set(ph.layout)) == tilesort.REG_LOG
+        for _, j in ph.stages:
+            assert (j in ph.layout) == (ph.where == "registers")
+    changes = sum(a.layout != b.layout for a, b in zip(phases, phases[1:]))
+    repeats = sum(a.where == b.where == "cluster"
+                  for a, b in zip(phases, phases[1:]))
+    assert (changes, changes + repeats) == (28, 29)
+
+
+def _run_schedule(words):
+    """The schedule on (blocks, 65536) int64 packed words, as the kernel
+    runs it: 4 tiles a block, a (512, 32) register file a tile in each
+    phase's layout; a register stage is one direction a thread (bit k of
+    its index) except for sizes 2 .. 16 in the first layout."""
+    w = words.reshape(words.shape[0], 4, 1 << tilesort.TILE_LOG).copy()
+    rank = np.arange(4)[None, :, None, None]
+    for n, ph in enumerate(tilesort.schedule()):
+        idx = tilesort.layout_index(ph.layout)
+        regs = w[:, :, idx]                       # (blocks, 4, 512, 32)
+        block_idx = rank << tilesort.TILE_LOG | idx
+        for k, j in ph.stages:
+            if ph.where == "cluster":
+                b = j - tilesort.TILE_LOG
+                peer = regs[:, np.arange(4) ^ (1 << b)]
+                low = (rank >> b & 1) == 0
+                asc = True if k == tilesort.K else (rank >> 1 & 1) == 0
+                regs = np.where((peer < regs) == (low == asc), peer, regs)
+                continue
+            q = ph.layout.index(j)
+            lo = [e for e in range(32) if not e >> q & 1]
+            hi = [e | 1 << q for e in lo]
+            desc = (block_idx[..., lo] >> k & 1).astype(bool) \
+                if k < tilesort.K else np.zeros((1, 4) + idx[:, lo].shape,
+                                                dtype=bool)
+            if not (n == 0 and k < tilesort.REG_LOG):
+                assert (desc == desc[..., :1]).all()   # one per thread
+            a, b = regs[..., lo], regs[..., hi]
+            swap = (b < a) != desc
+            regs[..., lo] = np.where(swap, b, a)
+            regs[..., hi] = np.where(swap, a, b)
+        w[:, :, idx] = regs
+    return w.reshape(words.shape)
+
+
+def _i32_extremes(rng, n, values):
+    return rng.choice(np.array(values, dtype=np.int32), n)
+
+
+@pytest.mark.parametrize("case", ["random", "equal", "extremes"])
+def test_tile_sort_schedule_in_numpy(case):
+    """The schedule run in numpy equals tile_sort_plain on random blocks,
+    on blocks of equal keys and on keys and payloads at INT32_MIN /
+    INT32_MAX."""
+    rng = np.random.default_rng(21)
+    n = 2 * tilesort.BLOCK
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    if case == "random":
+        key = rng.integers(lo, hi + 1, n, dtype=np.int64).astype(np.int32)
+        pay = rng.permutation(n).astype(np.int32)
+    elif case == "equal":
+        key = np.full(n, -5, np.int32)
+        pay = (rng.permutation(n) - n // 2).astype(np.int32)
+    else:
+        key = _i32_extremes(rng, n, [lo, hi, -1, 0])
+        pay = _i32_extremes(rng, n, [lo, hi, 0])
+    kt, pt = torch.as_tensor(key), torch.as_tensor(pay)
+    words = tilesort.pack(kt, pt).numpy().reshape(-1, tilesort.BLOCK)
+    got = tilesort.unpack(torch.as_tensor(_run_schedule(words)).reshape(-1))
+    want = tilesort.tile_sort_plain(kt, pt)
+    _equal(got[0], want[0])
+    _equal(got[1], want[1])
+
+
+def test_tile_sort_layouts_have_no_bank_conflicts():
+    """In every layout of the schedule a warp's 32 loads or stores of one
+    register (8 bytes) fall on 16 distinct bank pairs, two each; the cross
+    layout's 16-byte loads of a register pair on 8 distinct bank quads,
+    four each: the fewest wavefronts either width allows."""
+    for layout in {ph.layout for ph in tilesort.schedule()}:
+        slots = tilesort.slot(tilesort.layout_index(layout))
+        by_warp = slots.reshape(-1, 32, 32)         # warp, lane, register
+        for e in range(32):
+            for warp in by_warp[:, :, e]:
+                assert (np.bincount(warp % 16, minlength=16) == 2).all()
+        if layout == tilesort.CROSS:
+            pairs = by_warp[:, :, 0::2] >> 1
+            assert (by_warp[:, :, 0::2] >> 1 == by_warp[:, :, 1::2] >> 1).all()
+            for warp in pairs.transpose(0, 2, 1).reshape(-1, 32):
+                assert (np.bincount(warp % 8, minlength=8) == 4).all()
+
+
+def test_tile_sort_transposes_stay_within_their_sync_groups():
+    """Between windows A and B (index bits B .. B+4 in the register) the
+    kernel syncs only the 2^max(A, B) threads that share thread bits
+    max(A, B) .. 8 (`sync_group`): each such group holds the same words
+    before and after, so no other thread's words pass through it. Every
+    layout change inside the tile is such a pair; the others (window 9,
+    the cross layout) sync the CTA."""
+    phases = tilesort.schedule()
+    windows = {tilesort.window(b): b for b in range(10)}
+    seen = set()
+    for a, b in zip(phases, phases[1:]):
+        if a.layout == b.layout or a.layout not in windows or \
+                b.layout not in windows:
+            continue
+        m = max(windows[a.layout], windows[b.layout])
+        if m == 9:
+            continue
+        seen.add(m)
+        ia = tilesort.layout_index(a.layout).reshape(-1, 2 ** m * 32)
+        ib = tilesort.layout_index(b.layout).reshape(-1, 2 ** m * 32)
+        assert (np.sort(ia, 1) == np.sort(ib, 1)).all()
+    assert seen == {1, 2, 3, 4, 5, 6, 7, 8}
 
 
 # -- P-2 .. P-5 the gathers ---------------------------------------------------
@@ -545,6 +678,49 @@ def test_onehot_compact_plain_by_tile():
     assert not got[128:256].any() and not got[384:].any()
 
 
+def _warp_compact(x, keep, stale):
+    """P-10's kernel in numpy, lane by lane: lane l of a tile's warp holds
+    elements 8l .. 8l+7, counts its kept ones, takes its first destination
+    from a 5-step shift-up scan of the counts, writes its kept values into
+    the warp's staging row (holding `stale`, a previous tile's words) and
+    reads back its 8 slots, zero at or past the warp's total."""
+    lanes = x.reshape(-1, 32, 8)
+    kept = keep.reshape(-1, 32, 8) != 0
+    count = kept.sum(2)
+    inc = count.copy()
+    for d in (1, 2, 4, 8, 16):
+        up = np.zeros_like(inc)
+        up[:, d:] = inc[:, :-d]
+        inc = inc + up                    # lanes below d add nothing
+    total = inc[:, 31:]
+    row = np.array(stale, dtype=np.int32).reshape(-1, 256).copy()
+    for tile in range(lanes.shape[0]):
+        for lane in range(32):
+            dest = inc[tile, lane] - count[tile, lane]
+            for i in range(8):
+                if kept[tile, lane, i]:
+                    row[tile, dest] = lanes[tile, lane, i]
+                    dest += 1
+    return np.where(np.arange(256) >= total, 0, row).reshape(x.shape)
+
+
+@pytest.mark.parametrize("mask", ["none", "all", "first", "last",
+                                  "alternating", "random"])
+def test_onehot_compact_lane_destinations(mask):
+    """P-10's per-lane destinations, on the edge masks of each tile."""
+    rng = np.random.default_rng(13)
+    tiles = 3
+    x = rng.integers(-2 ** 31, 2 ** 31, tiles * 256).astype(np.int32)
+    pos = np.arange(tiles * 256) % 256
+    keep = {"none": pos < 0, "all": pos >= 0, "first": pos == 0,
+            "last": pos == 255, "alternating": pos % 2 == 1,
+            "random": rng.random(tiles * 256) < 0.4}[mask].astype(np.int32)
+    stale = rng.integers(1, 99, tiles * 256)
+    want = caps.cap_onehot_compact_plain(torch.as_tensor(x),
+                                         torch.as_tensor(keep))
+    _equal(want, _warp_compact(x, keep, stale))
+
+
 def test_mains_on_the_cpu(capsys):
     assert tilesort.main([str(tilesort.BLOCK), "--device", "cpu"]) == 0
     line = json.loads(capsys.readouterr().out)
@@ -568,6 +744,28 @@ def test_mains_need_cuda_unless_asked(monkeypatch, capsys):
     for mod in (tilesort, gather, roll, caps):
         assert mod.main([]) == 1
     assert capsys.readouterr().out == ""
+
+
+def test_turns_cases_on_the_cpu(monkeypatch, capsys):
+    """probes/turns.py's cases, this package standing in for the other on
+    CPU tensors: P-1, the gathers and P-10 with their bounds; at the
+    probes' own shapes each run equals its plain version. Without CUDA
+    its main exits 1."""
+    this = {"caps": caps, "gather": gather, "tilesort": tilesort}
+    cases = turns.cases(torch.device("cpu"), this)
+    assert [c["key"] for c in cases] == [
+        "P-1", "P-3", "P-3@scale", "P-4", "P-4@scale", "P-5", "P-5@scale",
+        "P-10", "P-10@scale"]
+    bound = {c["key"]: c["bound_ms"] * turns.HBM_BYTES_PER_MS for c in cases}
+    assert bound["P-1"] == 16 * tilesort.DEFAULT_N
+    assert bound["P-10@scale"] == 12 * turns.COMPACT_SCALE_TILES * 256
+    for c in cases:
+        if "@" not in c["key"] and c["key"] != "P-1":
+            assert turns._equal(c["this"](), c["plain"]())
+            assert turns._equal(c["other"](), c["plain"]())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert turns.main(["build/parent"]) == 1
+    assert "CUDA" in capsys.readouterr().err
 
 
 def test_probes_import_without_jax():
