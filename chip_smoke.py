@@ -99,7 +99,15 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    that call; its bound is the larger of its bytes over 3.35 TB/s and its
    operations over the card's rate for their type. It prints P-1's verdict
    (the probe's full-sort estimate against the library's two-operand sort)
-   and the dynamic / static roll ratio.
+   and the dynamic / static roll ratio (of device times, and of event
+   times, which at these kernels' ~0.02 ms also time the host's launches);
+   then the rolls' chain floor (one
+   warp's dependent SHFL + IADD steps on clock64 and the global timer,
+   times the 1024 repetitions) and an empty launch's device and event
+   time, from a small source it builds into build/exp/; and it fails
+   unless `cuobjdump -sass` of the built library shows 4 SHFL in each roll
+   kernel's loop for each rotation of a pass (one rotation a repetition,
+   nothing folded).
 9. Prints a JSON line of the operators, one of the kernels (H1-H4 and
    P-1 .. P-14), the card line, and last {"ok": true, "device": {...}}.
 
@@ -122,8 +130,11 @@ per-shard counts, capacities and row order exact; a group's float32 sum
 within 2e-4 of the group's sum of |v|, plus 1e-4 (the shards add their
 partial sums in another order than one table does).
 """
+import ctypes
+import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -138,6 +149,7 @@ from libgdf_tpu_torch.compat import gdf
 from libgdf_tpu_torch.io import CSVReadArg
 from libgdf_tpu_torch import probes
 from libgdf_tpu_torch.ops import kernels
+from libgdf_tpu_torch.ops.kernels import _lib
 from libgdf_tpu_torch.ops.sort import radix_encode
 from libgdf_tpu_torch.probes import caps, gather, roll, tilesort
 
@@ -1492,6 +1504,157 @@ def time_probe_case(c, err):
                 shape=c["shape"])
 
 
+# The rolls' floors, built from this source into build/exp/ (not part of
+# the package's kernels): one warp's dependent chain of SHFL + IADD steps,
+# K independent shuffles a step, timed by the SM's clock and the global
+# timer; and an empty kernel, the floor of the launch-bound probes.
+FLOOR_SRC = r"""
+#include <cuda_runtime.h>
+
+template <int K>
+__global__ void shfl_iadd_chain(int n, long long* out, unsigned* sink) {
+  unsigned v[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = threadIdx.x + k;
+  const int src = (threadIdx.x - 1) & 31;
+  unsigned long long t0, t1;
+  const long long c0 = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+#pragma unroll 1
+  for (int i = 0; i < n; i += 8) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        v[k] = __shfl_sync(0xffffffffu, v[k], src) + 1u;
+      }
+    }
+  }
+  unsigned acc = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc += v[k];
+  sink[threadIdx.x] = acc;                  // the chain ends before c1
+  const long long c1 = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1));
+  if (threadIdx.x == 0) {
+    out[0] = c1 - c0;
+    out[1] = (long long)(t1 - t0);
+  }
+}
+
+__global__ void empty_launch() {}
+
+extern "C" int floor_chain(int chains, int n, void* out, void* sink,
+                           void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  long long* o = static_cast<long long*>(out);
+  unsigned* s = static_cast<unsigned*>(sink);
+  if (chains == 1) {
+    shfl_iadd_chain<1><<<1, 32, 0, st>>>(n, o, s);
+  } else {
+    shfl_iadd_chain<4><<<1, 32, 0, st>>>(n, o, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int floor_empty(void* stream) {
+  empty_launch<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
+FLOOR_STEPS = 65_536
+# rotations in one pass of each roll kernel's loop: the static period 7,
+# the dynamic probe's 8 shifts
+ROLL_LOOP_ROTATIONS = {"roll_static_rows": 7, "roll_dynamic_rows": 8}
+
+
+def floor_lib():
+    """The library of FLOOR_SRC, built by nvcc into build/exp/ unless it
+    is there."""
+    exp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "exp")
+    os.makedirs(exp, exist_ok=True)
+    tag = hashlib.sha256(FLOOR_SRC.encode()).hexdigest()[:16]
+    so = os.path.join(exp, f"roll_floor_{tag}.so")
+    if not os.path.exists(so):
+        src = os.path.join(exp, f"roll_floor_{tag}.cu")
+        with open(src, "w") as f:
+            f.write(FLOOR_SRC)
+        subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-shared", "-o",
+                        so, src], check=True, capture_output=True,
+                       timeout=300)
+    lib = ctypes.CDLL(so)
+    lib.floor_chain.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                ctypes.c_void_p, ctypes.c_void_p]
+    lib.floor_empty.argtypes = [ctypes.c_void_p]
+    lib.floor_chain.restype = lib.floor_empty.restype = ctypes.c_int
+    return lib
+
+
+def roll_floors(dev, card):
+    """The rolls' chain floor, roll.REPS dependent SHFL + IADD steps of one
+    warp (and the step with 4 independent shuffles, as the kernels do), and
+    the device and event time of an empty launch."""
+    lib = floor_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.zeros(2, dtype=torch.int64, device=dev)
+    sink = torch.zeros(32, dtype=torch.int32, device=dev)
+    step = {}
+    for chains in (1, 4):
+        runs = []
+        for _ in range(3):
+            if lib.floor_chain(chains, FLOOR_STEPS, out.data_ptr(),
+                               sink.data_ptr(), stream):
+                fail("roll floor: the chain kernel did not launch")
+            clocks, ns = out.tolist()
+            runs.append((clocks / FLOOR_STEPS, ns / FLOOR_STEPS))
+        step[chains] = min(runs, key=lambda r: r[1])
+    empty = lambda: lib.floor_empty(stream)
+    res = {"chain_clocks": step[1][0], "chain_ns": step[1][1],
+           "chain4_clocks": step[4][0], "chain4_ns": step[4][1],
+           "chain_floor_ms": roll.REPS * step[1][1] / 1e6,
+           "chain4_floor_ms": roll.REPS * step[4][1] / 1e6,
+           "sm_ghz": step[1][0] / step[1][1],
+           "empty_launch_ms": profiled_ms(empty, ("empty_launch",), 50),
+           "empty_launch_event_ms": cuda_ms(empty, 200)}
+    print("roll floor: " + " ".join(f"{k}={v}" for k, v in res.items())
+          + f" ({card})", flush=True)
+    return res
+
+
+def roll_loop_shuffles():
+    """{roll kernel: SHFL instructions in its loop}, from cuobjdump -sass of
+    the built library: the instructions from the target of the kernel's
+    backward branch to the branch. Fails unless each loop pass shuffles 4
+    registers a rotation (one rotation a repetition, nothing folded)."""
+    cuobjdump = os.path.join(os.path.dirname(_lib._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_lib.library_path())],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    instr = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z0-9_.]+)\s*(0x[0-9a-f]+)?")
+    found = {name: [] for name in ROLL_LOOP_ROTATIONS}
+    fn = None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = next((n for n in found if n in ln), None)
+        elif fn and (m := instr.match(ln)):
+            found[fn].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    counts = {}
+    for name, ins in found.items():
+        loops = [(int(to, 16), at) for at, op, to in ins
+                 if op.startswith("BRA") and to and int(to, 16) < at]
+        counts[name] = max((sum(lo <= at <= hi and op.startswith("SHFL")
+                                for at, op, _ in ins)
+                            for lo, hi in loops), default=0)
+        if counts[name] != 4 * ROLL_LOOP_ROTATIONS[name]:
+            fail(f"{name}: {counts[name]} SHFL in its loop, not 4 for each "
+                 f"of its {ROLL_LOOP_ROTATIONS[name]} rotations")
+    print(f"roll SASS: SHFL in each loop pass {counts} for rotations "
+          f"{ROLL_LOOP_ROTATIONS} (4 a rotation)", flush=True)
+    return counts
+
+
 def run_probes(dev, card):
     """The probe path: drive, check, time. Returns ({P-n: stats, with the
     main-scale run under "at_scale"}, {P-n: launches on the path})."""
@@ -1520,10 +1683,22 @@ def run_probes(dev, card):
         else:
             stats[c["pn"]]["at_scale"] = st
     tile_verdict(cases[0], stats["P-1"], card)
-    static, dynamic = stats["P-6"]["ms"], stats["P-7"]["ms"]
-    print(f"roll: static {static * 1e6 / roll.REPS:.2f} ns/roll, dynamic "
-          f"{dynamic * 1e6 / roll.REPS:.2f} ns/roll, dynamic/static ratio "
-          f"{dynamic / static:.4f} ({card})", flush=True)
+    # the kernels' own (profiler) times: at ~0.02 ms a call the events of
+    # back-to-back calls time the wrappers' host path as well
+    print("roll: " + "; ".join(
+        f"{what} static {static * 1e6 / roll.REPS:.2f} ns/roll, dynamic "
+        f"{dynamic * 1e6 / roll.REPS:.2f} ns/roll, dynamic/static ratio "
+        f"{dynamic / static:.4f}" if static and dynamic else
+        f"{what} not measured"
+        for what, static, dynamic in (
+            ("device", stats["P-6"]["profiler_ms"],
+             stats["P-7"]["profiler_ms"]),
+            ("events", stats["P-6"]["ms"], stats["P-7"]["ms"])))
+        + f" ({card})", flush=True)
+    floors = roll_floors(dev, card)
+    roll_loop_shuffles()
+    for pn in ("P-6", "P-7"):
+        stats[pn]["chain_floor_ms"] = floors["chain_floor_ms"]
     print(f"probe path {time.perf_counter() - t0:.1f} s", flush=True)
     return stats, launches
 

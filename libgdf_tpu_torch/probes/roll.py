@@ -8,7 +8,10 @@ Counterpart of `benchmarks/probe_roll.py` (`_kernel_static` l.38,
 (np.roll's direction) over int32 rows of 128 lanes, with s_i = 1 + i % 7
 fixed when the kernel is compiled (`roll_static`) or s_i = s[i % 8] read
 at run time (`roll_dynamic`). The kernels (`csrc/probe_roll.cu`) keep one
-row per warp in registers and rotate by warp shuffles.
+row per warp in registers, lane l holding elements 4l .. 4l+3, and rotate
+by one warp shuffle per register and repetition: 4-warp blocks, one warp a
+scheduler; the dynamic kernel renames its registers instead of selecting
+them.
 
     python -m libgdf_tpu_torch.probes.roll [--device cpu]
 

@@ -12,20 +12,26 @@ from OTHER/libgdf_tpu_torch/csrc into OTHER/build/kernels.
 The cases, on the inputs of `chip_smoke.py`'s probe path: P-1
 (`tile_sort` of 11,534,336 pairs), P-3 (`sublane_gather`), P-4
 (`flat_take` of the 64K table) and P-5 (`flat_take` of the (512, 128)
-table) at the probe's own shapes and at 81,920 x 128 indices, and P-10
-(`cap_onehot_compact`) at the probe's 256 elements and at 40,960 tiles of
-256. `--cases` keeps those whose name (before any "@") is listed. Both
-builds must equal the plain version exactly. Then, per round, the two are
-timed in turns (other, this, this, other): CUDA-event ms per call over
-`reps` back-to-back calls, and device ms per call from torch.profiler over
-every kernel in the window, with the kernels the profile saw per call (a
-profile that drops records shows fewer than the build launches). The plain
-version and the library call (for the gathers `torch.take_along_dim`, or
-indexing, on int64 indices; for P-1 `torch.sort` of the packed words by
-block; for P-10 `x[keep]` padded with zeros) are timed once; the bound is
-the bytes read once and written once over the H100's 3.35 TB/s. It prints
-the card line, one line per case and a JSON line of every number; it exits
-1 without CUDA or if a check fails.
+table) at the probe's own shapes and at 81,920 x 128 indices, P-6 and P-7
+(`roll_static`, `roll_dynamic`: 1024 rotations of the probe's (512, 128)
+block) and P-10 (`cap_onehot_compact`) at the probe's 256 elements and
+at 40,960 tiles of 256. `--cases` keeps those whose name (before any "@")
+is listed. Both builds must equal the plain version exactly. Then, per
+round, the two are timed in turns (other, this, this, other): CUDA-event
+ms per call over `reps` back-to-back calls, and device ms per call from
+torch.profiler over every kernel in the window, with the kernels the
+profile saw per call (a profile that drops records shows fewer than the
+build launches). The plain version and the library call are timed once:
+for the gathers `torch.take_along_dim`, or indexing, on int64 indices;
+for P-1 `torch.sort` of the packed words by block; for P-10 `x[keep]`
+padded with zeros; for the rolls one `torch.roll(x, 1, 1)`, a single
+rotation, so its times are also given times the repetitions
+(`library_x_reps`: no one PyTorch call computes the probe's chain of
+rotations without folding it). The bound is the bytes read once and
+written once over the H100's 3.35 TB/s or, for the rolls, the 32-bit
+operations (a move and an add an element a repetition) over its 67 T/s,
+whichever is larger. It prints the card line, one line per case and a
+JSON line of every number; it exits 1 without CUDA or if a check fails.
 """
 from __future__ import annotations
 
@@ -40,9 +46,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import caps, gather, tilesort
+from . import caps, gather, roll, tilesort
 
 HBM_BYTES_PER_MS = 3.35e12 / 1e3        # H100 SXM data sheet, at 700 W
+SCALAR_OPS_PER_MS = 67e12 / 1e3          # 32-bit, outside the tensor cores
 SCALE_ROWS = 81_920
 COMPACT_SCALE_TILES = 40_960
 LIBRARY = {"sublane": lambda x, i64: torch.take_along_dim(x, i64, 0),
@@ -60,23 +67,27 @@ def other_probes(root: Path) -> dict:
     sys.modules[name] = pkg
     spec.loader.exec_module(pkg)
     return {mod: importlib.import_module(f"{name}.probes.{mod}")
-            for mod in ("caps", "gather", "tilesort")}
+            for mod in ("caps", "gather", "roll", "tilesort")}
 
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _case(key, shapes, this, other, plain, library, moved):
+def _case(key, shapes, this, other, plain, library, moved, ops=0,
+          library_x=1):
+    """`library_x`: how many library calls one call of the kernel is worth
+    (the rolls' single rotation against the kernel's `roll.REPS`)."""
     return {"key": key, "shapes": shapes, "this": this, "other": other,
-            "plain": plain, "library": library,
-            "bound_ms": moved / HBM_BYTES_PER_MS}
+            "plain": plain, "library": library, "library_x": library_x,
+            "bound_ms": max(moved / HBM_BYTES_PER_MS,
+                            ops / SCALAR_OPS_PER_MS)}
 
 
 def cases(dev: torch.device, old: dict, seed: int = 0) -> list:
-    """P-1, the gathers P-3, P-4, P-5 and P-10, drawn as chip_smoke.py's
-    probe path draws them (the lane gather's draws included, then
-    dropped)."""
+    """P-1, the gathers P-3, P-4, P-5, the rolls P-6, P-7 and P-10, drawn
+    as chip_smoke.py's probe path draws them (the lane gather's draws
+    included, then dropped)."""
     out = []
     n = tilesort.DEFAULT_N
     key = torch.as_tensor(np.random.default_rng(0).integers(
@@ -110,6 +121,22 @@ def cases(dev: torch.device, old: dict, seed: int = 0) -> list:
                 lambda f=gather.PLAIN[kind], xt=xt, it=it: f(xt, it),
                 lambda f=LIBRARY[kind], xt=xt, i64=i64: f(xt, i64),
                 _nbytes(xt) + 2 * _nbytes(it)))
+
+    x, s = roll.probe_inputs()
+    rx, rs = torch.as_tensor(x, device=dev), torch.as_tensor(s, device=dev)
+    shapes = f"{roll.REPS} rolls of int32 {tuple(x.shape)}, each + 1"
+    one_roll = lambda: torch.roll(rx, 1, 1)
+    out.append(_case(
+        "P-6", shapes, lambda: roll.roll_static(rx),
+        lambda f=old["roll"].roll_static: f(rx),
+        lambda: roll.roll_static_plain(rx), one_roll,
+        2 * _nbytes(rx), 2 * roll.REPS * rx.numel(), roll.REPS))
+    out.append(_case(
+        "P-7", shapes, lambda: roll.roll_dynamic(rs, rx),
+        lambda f=old["roll"].roll_dynamic: f(rs, rx),
+        lambda: roll.roll_dynamic_plain(rs, rx), one_roll,
+        2 * _nbytes(rx) + _nbytes(rs), 2 * roll.REPS * rx.numel(),
+        roll.REPS))
 
     px, pk = (torch.as_tensor(a, device=dev)
               for a in caps.probe_inputs()["p3"])
@@ -196,8 +223,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--cases", default=None,
-                    help="comma-separated names (P-1, P-3, P-4, P-5, P-10); "
-                         "default all")
+                    help="comma-separated names (P-1, P-3, P-4, P-5, P-6, "
+                         "P-7, P-10); default all")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("turns: CUDA is not available", file=sys.stderr)
@@ -228,18 +255,28 @@ def main(argv=None) -> int:
                 times[who]["device_ms"].append(ms)
                 times[who]["kernels_per_call"].append(seen)
         lib_ms, _ = device_ms(c["library"], args.reps)
+        lib_x = c["library_x"]
         row = {"case": c["key"], "shapes": c["shapes"], **times,
                "plain_ms": event_ms(c["plain"], args.reps),
                "library_ms": event_ms(c["library"], args.reps),
-               "library_device_ms": lib_ms, "bound_ms": c["bound_ms"]}
+               "library_device_ms": lib_ms, "library_x": lib_x,
+               "bound_ms": c["bound_ms"]}
+        if lib_x != 1:
+            row["library_x_reps_ms"] = row["library_ms"] * lib_x
+            row["library_x_reps_device_ms"] = (lib_ms * lib_x
+                                               if lib_ms is not None
+                                               else None)
         results.append(row)
         print(f"{c['key']}: " + " ".join(
             f"{who}_{m}=" + _fmt(times[who][m])
             for who in runs for m in ("device_ms", "event_ms",
                                       "kernels_per_call"))
             + f" plain_ms={row['plain_ms']:.4f} library_ms="
-            f"{row['library_ms']:.4f} library_device_ms={lib_ms} "
-            f"bound_ms={row['bound_ms']:.4f} ({card})", flush=True)
+            f"{row['library_ms']:.4f} library_device_ms={lib_ms}"
+            + (f" library_x_reps_ms={row['library_x_reps_ms']:.4f} "
+               f"library_x_reps_device_ms="
+               f"{row['library_x_reps_device_ms']}" if lib_x != 1 else "")
+            + f" bound_ms={row['bound_ms']:.4f} ({card})", flush=True)
     print(json.dumps({"turns": results, "card": card}), flush=True)
     return 0
 

@@ -887,6 +887,50 @@ def test_roll_static_and_mixed_shifts(dev, reps, rows):
     _same(roll.roll_dynamic(s, x, reps), roll.roll_dynamic_plain(s, x, reps))
 
 
+# Rows ragged against a 4-warp block (and against 2 rows a warp), the tails
+# of the static unroll by 7 and the dynamic one by 8, and the dynamic
+# shift edges: r = 0 .. 3 at q = 0 and q = 31, multiples of 4 and of 32,
+# negatives, 128 and over, all 8 equal.
+ROLL_ROWS = [1, 3, 4, 5, 127, 129, 513, 4097]
+ROLL_REPS = [0, 1, 2, 6, 7, 8, 9, 15, 16, 1023, 1024, 1025]
+ROLL_SHIFTS = [[0, 1, 2, 3, 124, 125, 126, 127],
+               [4, 8, 32, 64, 96, 128, 256, 12],
+               [-1, -2, -3, -4, -127, -128, -129, -300],
+               [128, 129, 131, 255, 383, 1000, 2 ** 31 - 1, -2 ** 31],
+               [5] * 8, [126] * 8]
+
+
+@pytest.mark.parametrize("reps", ROLL_REPS)
+@pytest.mark.parametrize("rows", ROLL_ROWS)
+def test_roll_edges(dev, rows, reps):
+    from libgdf_tpu_torch.probes import roll
+    rng = np.random.default_rng(rows * 2048 + reps)
+    x = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (rows, 128))
+                        .astype(np.int32), device=dev)
+    _same(roll.roll_static(x, reps), roll.roll_static_plain(x, reps))
+    for shifts in ROLL_SHIFTS:
+        s = torch.tensor(shifts, dtype=torch.int32, device=dev)
+        _same(roll.roll_dynamic(s, x, reps),
+              roll.roll_dynamic_plain(s, x, reps))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_roll_unaligned_rows(dev, offset):
+    """A contiguous view 4-12 bytes off a 16-byte boundary takes the
+    kernels' 4-byte accesses."""
+    from libgdf_tpu_torch.probes import roll
+    rng = np.random.default_rng(offset)
+    base = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, 37 * 128 + 4)
+                           .astype(np.int32), device=dev)
+    x = base[offset:offset + 37 * 128].view(37, 128)
+    s = torch.tensor([3, -1, 0, 127, 128, 40, 2, 9], dtype=torch.int32,
+                     device=dev)
+    for reps in (9, 1024):
+        _same(roll.roll_static(x, reps), roll.roll_static_plain(x, reps))
+        _same(roll.roll_dynamic(s, x, reps),
+              roll.roll_dynamic_plain(s, x, reps))
+
+
 @pytest.mark.parametrize("name", ["p1", "p2", "p3", "p4", "p5", "p6", "p7"])
 def test_caps_on_the_probes_inputs(dev, name):
     """Each capability kernel against its plain version and the probe's

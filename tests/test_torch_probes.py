@@ -481,6 +481,96 @@ def test_roll_direction_and_wide_shifts(probe_roll, monkeypatch):
     assert one[0, 5] == x[0, 0] + 1 and one[0, 0] == x[0, 123] + 1
 
 
+def lane_model(s):
+    """csrc/probe_roll.cu's rotation by s in numpy: lane l holds elements
+    4l .. 4l+3 of its row; for s mod 128 = 4q + r, output register k takes
+    register (k - r) & 3 of lane (l - q - [k < r]) & 31. Returns the source
+    register of each k (one for every lane) and the (32, 4) source lanes."""
+    s %= roll.LANES
+    q, r = s >> 2, s & 3
+    k = np.arange(4)
+    lane = np.arange(32)[:, None]
+    return (k - r) & 3, (lane - q - (k < r)) & 31
+
+
+def _shuffle(regs, src_reg, src_lane):
+    """regs (32, 4); output register k of lane l = regs[src_lane[l, k],
+    src_reg[k]]: one shuffle per output register."""
+    return np.stack([regs[src_lane[:, k], src_reg[k]] for k in range(4)], 1)
+
+
+@pytest.mark.parametrize("first", range(-256, 256, 32))
+def test_lane_model_is_np_roll(first):
+    """One rotation by every s in [first, first + 32) moves each element
+    where np.roll does, and each output register reads one source
+    register, the same on every lane (no select after the shuffle)."""
+    row = np.random.default_rng(first + 256).integers(
+        -2 ** 31, 2 ** 31, roll.LANES).astype(np.int32)
+    regs = row.reshape(32, 4)
+    for s in range(first, first + 32):
+        src_reg, src_lane = lane_model(s)
+        got = _shuffle(regs, src_reg, src_lane).reshape(-1)
+        np.testing.assert_array_equal(got, np.roll(row, s), err_msg=str(s))
+
+
+def renamed_model(rows, shifts, reps):
+    """roll_dynamic_rows in numpy, its loop included: whole groups of the
+    8 shifts, then the reps % 8 tail. Registers are renamed: logical
+    register k lives in physical register (k + c) & 3, where c is c0 - pre
+    (c0 the offset at the group's start, pre = r_0 + .. + r_u after shift
+    u); physical register j holds logical (j - c) & 3, which takes its
+    source from lane hi where that is below r. Each shift keeps that test
+    for c0 = 0 as a 4-bit mask rotated by -pre, doubled (`wrap`), so at
+    offset c0 it is bit j of (wrap << c0) >> 4. Every element gets + 1 a
+    rotation; the store undoes the renaming."""
+    out = np.empty_like(rows)
+    lane = np.arange(32)
+    plan, pre = [], 0
+    for s in shifts:
+        s = int(s) % roll.LANES
+        r = s & 3
+        pre += r
+        m, k = (1 << r) - 1, -pre & 3
+        rot = ((m << k) | (m >> (4 - k))) & 15
+        plan.append(((lane - (s >> 2)) & 31, (lane - (s >> 2) - 1) & 31,
+                     rot * 0x11, pre))
+    total = pre & 3
+    for i, row in enumerate(rows):
+        regs = row.reshape(32, 4).copy()
+
+        def rotate(u, c0):
+            lo, hi, wrap, _ = plan[u]
+            m = (wrap << c0) >> 4
+            return np.stack([regs[hi if (m >> j) & 1 else lo, j]
+                             for j in range(4)], 1) + np.int32(1)
+        c0 = 0
+        for _ in range(reps // roll.SHIFTS):
+            for u in range(roll.SHIFTS):
+                regs = rotate(u, c0)
+            c0 = (c0 - total) & 3
+        tail = reps % roll.SHIFTS
+        for u in range(tail):
+            regs = rotate(u, c0)
+        c = (c0 - plan[tail - 1][3]) & 3 if tail else c0
+        out[i] = regs[:, (np.arange(4) + c) & 3].reshape(-1)
+    return out
+
+
+@pytest.mark.parametrize("shifts", [
+    [1, 2, 3, 4, 5, 6, 7, 8], [0, 1, 2, 3, 124, 125, 126, 127],
+    [4, 8, 32, 64, 96, 128, 256, 12], [-1, -2, -3, -4, -127, -128, -129,
+                                       -300],
+    [5] * 8, [2 ** 31 - 1, -2 ** 31, 131, 255, 383, 1000, 3, 2]])
+@pytest.mark.parametrize("reps", [0, 1, 7, 8, 9, 15, 16, 25])
+def test_renamed_model_is_np_roll(shifts, reps):
+    """The dynamic kernel's renamed registers and its loop over groups of
+    8 and a tail give np.roll step by step."""
+    rows = np.random.default_rng(reps).integers(
+        -2 ** 31, 2 ** 31, (3, roll.LANES)).astype(np.int32)
+    want = roll.numpy_roll(rows, roll.dynamic_shifts(shifts, reps))
+    np.testing.assert_array_equal(renamed_model(rows, shifts, reps), want)
+
+
 def test_roll_rejects_bad_shapes():
     with pytest.raises(TypeError):
         roll.roll_static(torch.zeros((4, 64), dtype=torch.int32))
@@ -748,17 +838,27 @@ def test_mains_need_cuda_unless_asked(monkeypatch, capsys):
 
 def test_turns_cases_on_the_cpu(monkeypatch, capsys):
     """probes/turns.py's cases, this package standing in for the other on
-    CPU tensors: P-1, the gathers and P-10 with their bounds; at the
-    probes' own shapes each run equals its plain version. Without CUDA
-    its main exits 1."""
-    this = {"caps": caps, "gather": gather, "tilesort": tilesort}
+    CPU tensors: P-1, the gathers, the rolls and P-10 with their bounds
+    (the rolls' by operations, their library call one rotation of the
+    repetitions); at the probes' own shapes each run equals its plain
+    version. Without CUDA its main exits 1."""
+    this = {"caps": caps, "gather": gather, "roll": roll,
+            "tilesort": tilesort}
     cases = turns.cases(torch.device("cpu"), this)
     assert [c["key"] for c in cases] == [
         "P-1", "P-3", "P-3@scale", "P-4", "P-4@scale", "P-5", "P-5@scale",
-        "P-10", "P-10@scale"]
+        "P-6", "P-7", "P-10", "P-10@scale"]
     bound = {c["key"]: c["bound_ms"] * turns.HBM_BYTES_PER_MS for c in cases}
     assert bound["P-1"] == 16 * tilesort.DEFAULT_N
     assert bound["P-10@scale"] == 12 * turns.COMPACT_SCALE_TILES * 256
+    rolls = [c for c in cases if c["key"] in ("P-6", "P-7")]
+    x = torch.as_tensor(roll.probe_inputs()[0])
+    for c in rolls:
+        assert c["bound_ms"] == (2 * roll.REPS * x.numel()
+                                 / turns.SCALAR_OPS_PER_MS)
+        assert c["library_x"] == roll.REPS
+        assert torch.equal(c["library"](), torch.roll(x, 1, 1))
+    assert all(c["library_x"] == 1 for c in cases if c not in rolls)
     for c in cases:
         if "@" not in c["key"] and c["key"] != "P-1":
             assert turns._equal(c["this"](), c["plain"]())
