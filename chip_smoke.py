@@ -27,6 +27,17 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    segmented sum and one compaction are bit-identical. Each kernel's bound
    is the bytes it must move (inputs read once, outputs written once) over
    the H100's 3.35 TB/s.
+   Then it checks the repaired faults C3-C6 (ROADMAP queue C) on the card:
+   the faults' examples give the JAX package's answers (a float32
+   denormal compares equal to 0, a denormal divisor gives NaN, float32
+   -1e-40 // float64 3.0 is 0, the identity hash of a float saturates,
+   a float64 running min propagates NaN), and 22 cases over 1M rows equal
+   the port's CPU run exactly: comparisons, div and floordiv of denormals
+   against each float dtype and int64, both ways round; the identity hash
+   of floats with inf, NaN and values past 2^32; groupby and window
+   min / max of denormals (ROW running, ROW over 10,000 rows, RANGE); and
+   the float64 running min with its first NaN just before and after H3's
+   tile edges.
 4. Drives the main path at full size: a 10M-row fact table against a
    1M-row dimension, filter -> inner join -> groupby -> order_by, then a
    10M x 1M inner join whose build side repeats each key 4 times.
@@ -1318,6 +1329,129 @@ def drive(path, run, data, dev, card):
     return res, launches
 
 
+# -- the repaired faults (ROADMAP queue C, C3-C6) ----------------------------
+
+N_FAULTS = 1_000_000
+# the first NaN of C5's running min, just before and after H3's tile edges
+# (4096 8-byte or 8192 4-byte elements)
+FAULT_NAN_AT = (4095, 4096, 8191, 8192, 8193, 61 * 8192 - 1)
+
+
+def fault_values(rng, dtype, n):
+    """Zeros, +-denormals, +-finfo.tiny, normal values, NaN and inf."""
+    d = 1e-40 if dtype == np.float32 else 1e-310
+    tiny = np.finfo(dtype).tiny
+    return rng.choice(np.array([0.0, -0.0, d, -d, 2 * d, tiny, -tiny, 1.5,
+                                -1.5, 3.0, np.nan, np.inf], dtype), n)
+
+
+def fault_cases(seed=0):
+    """[(name, run(device) -> tuple of Columns or tensors)] over
+    N_FAULTS-row inputs: C3 / C6 comparisons, div and floordiv of denormals
+    against the same dtype, the other float dtype and int64, both ways
+    round; C4 the identity hash of floats with inf, NaN and values past
+    2^32; C3 the groupby and window min / max of denormals (ROW running,
+    ROW over 10,000 rows, RANGE); C5 the float64 running min with its first
+    NaN at H3's tile edges."""
+    rng = np.random.default_rng(seed)
+    n = N_FAULTS
+    out = []
+    for dt, other in ((np.float32, np.float64), (np.float64, np.float32)):
+        x = fault_values(rng, dt, n)
+        for p in (fault_values(rng, dt, n), fault_values(rng, other, n),
+                  rng.integers(-3, 4, n)):
+            for a, b in ((x, p), (p, x)):
+                def run(dev, a=a, b=b):
+                    ca, cb = (Column.from_array(v, device=dev)
+                              for v in (a, b))
+                    return tuple(ops.binary_op(ca, cb, op) for op in
+                                 ("eq", "ne", "lt", "le", "gt", "ge", "div",
+                                  "floordiv"))
+                out.append((f"C3/C6 {a.dtype} op {b.dtype}", run))
+        h = np.concatenate([[-1.0, -2.5, 5e9, np.inf, -np.inf, np.nan,
+                             2.0 ** 32, 4294967040.0],
+                            rng.standard_normal(n) * 3e9]).astype(dt)
+        out.append((f"C4 identity hash {h.dtype}",
+                    lambda dev, h=h: (ops.hash_columns(
+                        [torch.as_tensor(h, device=dev)], "identity"),)))
+        d = 1e-40 if dt == np.float32 else 1e-310
+        cols = {"p": rng.integers(0, 1000, n).astype(np.int32),
+                "o": rng.permutation(n).astype(np.int32),
+                "v": rng.choice(np.array([d, -d, 2 * d, 0.0, -0.0, 1.0],
+                                         dt), n)}
+        nulls = {"v": rng.random(n) < 0.1}
+
+        def windows(dev, cols=cols, nulls=nulls):
+            W = Table.from_dict(cols, nulls, device=dev)
+            aggs = [("v", "min", "lo"), ("v", "max", "hi")]
+            g = ops.groupby(W, ["p"], aggs).compact()
+            return (*g.columns, *(
+                ops.window_function(W, "v", red, partition_by=["p"],
+                                    order_by=["o"], **kw)
+                for red in ("min", "max")
+                for kw in ({}, dict(preceding=10_000),
+                           dict(preceding=n // 4, frame="range"))))
+        out.append((f"C3 groupby and window min / max {dt.__name__}",
+                    windows))
+    for at in FAULT_NAN_AT:
+        v = rng.standard_normal(n)
+        v[at] = np.nan
+        cols = {"o": np.arange(n, dtype=np.int32), "v": v}
+
+        def running(dev, cols=cols):
+            W = Table.from_dict(cols, device=dev)
+            return (ops.window_function(W, "v", "min", order_by=["o"]),)
+        out.append((f"C5 running min, first NaN at {at}", running))
+    return out
+
+
+def check_fault_examples(dev):
+    """The reference's answers to the faults' examples (ROADMAP queue C),
+    on the card."""
+    f32 = np.float32
+
+    def col(v, dt):
+        return Column.from_array(np.asarray(v, dt), device=dev)
+
+    def same(got, want, what):
+        got = got.data if isinstance(got, Column) else got
+        exact(got.cpu(), torch.as_tensor(want, dtype=got.dtype), what)
+
+    a, b = col([1e-40, -1e-40, 1e-40], f32), col([0, 0, 2e-40], f32)
+    same(gdf.gdf_eq_f32(a, b), [1, 1, 1], "C3 gdf_eq_f32")
+    same(ops.binary_op(a, b, "div"), [np.nan] * 3, "C6 div")
+    same(ops.binary_op(col([-1e-40], f32), col([3.0], np.float64),
+                       "floordiv"), [0.0], "C3 floordiv")
+    same(ops.binary_op(col([0], np.int32), col([1e-40], f32), "div"),
+         [np.nan], "C6 int / float")
+    same(ops.hash_columns([torch.tensor(
+        [-1, -2.5, 5e9, np.inf, 1, 2, np.nan], dtype=torch.float64,
+        device=dev)], "identity"),
+        [0, 0, 4294967295, 4294967295, 1, 2, 0], "C4 identity hash")
+    W = Table.from_dict({"o": np.arange(5, dtype=np.int32),
+                         "v": np.array([3, np.nan, 1, 2, -1])}, device=dev)
+    same(ops.window_function(W, "v", "min", order_by=["o"]),
+         [3] + [np.nan] * 4, "C5 running min")
+
+
+def check_faults(dev, card):
+    """C3-C6 on the card: the examples give the reference's answers, and
+    every fault case equals the port's CPU run exactly (NaN equals NaN)."""
+    t0 = time.perf_counter()
+    check_fault_examples(dev)
+    cases = fault_cases()
+    for name, run in cases:
+        for i, (g, c) in enumerate(zip(run(dev), run(torch.device("cpu")))):
+            if isinstance(g, Column):
+                same_column(g, c, f"{name} [{i}]")
+            else:
+                exact(g.cpu(), c, f"{name} [{i}]")
+    torch.cuda.synchronize()
+    print(f"faults C3-C6: the examples give the reference's answers and "
+          f"{len(cases)} cases over {N_FAULTS} rows equal the CPU run "
+          f"({card}; phase {time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 # -- the probe path ---------------------------------------------------------
 
 def probe_case(pn, run, plain, moved, shape, *, scale=False, library=None,
@@ -1424,7 +1558,7 @@ def make_probe_cases(dev, seed=0):
             lib = lambda px=args[0], i64=args[1].long(): \
                 torch.take_along_dim(px, i64, 1)
         elif pn == "P-13":
-            lib = lambda px=args[0]: px.sum()
+            lib = lambda px=args[0]: px.sum(dtype=torch.int32)
         out_bytes = {"P-11": caps.bulk_rows(3) * 128 * 4, "P-13": 4,
                      "P-14": 128 * 4}.get(pn, nbytes(args[0]))
         cases.append(probe_case(
@@ -1761,6 +1895,8 @@ def main():
               f"plain_ms={st['plain_ms']:.4f} bound_ms={st['bound_ms']:.4f} "
               f"({st['shape']}; {card}; phase "
               f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+    check_faults(dev, card)
 
     data = make_data(0)
     (gpu, times), launches = drive("main", run_main_path, data, dev, card)

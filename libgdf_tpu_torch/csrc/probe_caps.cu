@@ -36,11 +36,32 @@
 // all 16-byte aligned (a view at an odd offset) take 4-byte loads and
 // stores instead.
 //
+// P-9 design: the whole tile (rows <= 64 of 128 int32, at most 32 KB) comes
+// on chip at once. Thread (lane g, warp b) of an 8-warp block holds columns
+// 4g .. 4g+3 of rows 8b .. 8b+7 as 8 16-byte loads, all issued before the
+// first add (a warp reads 8 whole 512-byte rows). Axis 0 is a blocked
+// scan: each thread's running column sums over its 8 rows in registers,
+// the warps' totals through shared memory, one barrier, and each warp adds
+// the totals of the warps above it. Axis 1: a warp holds its 8 rows whole,
+// so a row's scan is an in-thread scan of 4 columns and a 5-step shuffle
+// scan of the lanes' totals, and the 8 rows' chains are independent and
+// overlap. 16-byte stores, a warp writing whole rows; 4-byte accesses
+// where x or out is not 16-byte aligned. One barrier a call.
+//
 // P-11 design: one CUDA block loops over the steps (the TPU's sequential
 // grid) with the row offset carried in a register; each step's staged rows
 // go from shared to device memory with one cp.async.bulk (a 512-byte row
 // keeps address and size 16-byte aligned), completed before the next step
 // so that a later step's rows overwrite an earlier one's, as on the TPU.
+//
+// P-13 design: the TPU carries the sum from one 8-row grid step to the
+// next in SMEM; unsigned addition wraps and is associative, so the carry
+// is a plain sum in any order. One block of 256 threads: each thread
+// issues 4 16-byte loads before its first add (the probe's 4 tiles, 16 KB,
+// in one round of loads), keeps its partial sum in a register, and loops
+// over 16 KB chunks for more tiles; then one block reduction (a warp's
+// shuffles, 8 warp totals through shared memory, one barrier) and one
+// store. 4-byte loads where x is not 16-byte aligned.
 #include "common.cuh"
 
 namespace {
@@ -76,36 +97,70 @@ cap_dyn_store(const int* __restrict__ x, int* __restrict__ out, int rows) {
   for (int e = threadIdx.x; e < rows * kLanes; e += kThreads) out[e] = s[e];
 }
 
-// One block of 128 threads: a column per thread, then a row per warp step.
-__global__ void __launch_bounds__(kLanes)
-cap_cumsum2d(const int* __restrict__ x, int* __restrict__ out, int rows) {
-  __shared__ unsigned s[kCumRows * kLanes];
-  const int j = threadIdx.x;
-  unsigned acc = 0;
-  for (int r = 0; r < rows; ++r) {
-    acc += (unsigned)x[r * kLanes + j];
-    s[r * kLanes + j] = acc;
+constexpr int kCumRowsPerWarp = 8;                      // P-9
+constexpr int kCumWarps = kCumRows / kCumRowsPerWarp;
+constexpr int kCarryLoads = 4;                          // P-13, a thread
+constexpr int kQuads = kLanes / 4;                      // int4 a row
+
+template <bool kVec>
+__device__ __forceinline__ uint4 load4(const int* p) {
+  if (kVec) return *reinterpret_cast<const uint4*>(p);
+  return make_uint4((unsigned)p[0], (unsigned)p[1], (unsigned)p[2],
+                    (unsigned)p[3]);
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(int* p, uint4 v) {
+  if (kVec) {
+    *reinterpret_cast<uint4*>(p) = v;
+  } else {
+    p[0] = (int)v.x; p[1] = (int)v.y; p[2] = (int)v.z; p[3] = (int)v.w;
   }
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < rows; r += kLanes / 32) {
-    unsigned v[4];
-    unsigned run = 0;
+}
+
+__device__ __forceinline__ uint4 add4(uint4 a, uint4 b) {
+  return make_uint4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// One block of kCumWarps warps; warp b holds rows [8b, 8b + 8).
+template <bool kVec>
+__global__ void __launch_bounds__(kCumWarps * 32)
+cap_cumsum2d(const int* __restrict__ x, int* __restrict__ out, int rows) {
+  __shared__ uint4 warp_tot[kCumWarps][kQuads];
+  const int g = threadIdx.x & 31;
+  const int b = threadIdx.x >> 5;
+  const int first = b * kCumRowsPerWarp;
+  uint4 v[kCumRowsPerWarp];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      run += s[r * kLanes + 4 * lane + q];
-      v[q] = run;
-    }
-    unsigned inc = run;
+  for (int i = 0; i < kCumRowsPerWarp; ++i) {
+    v[i] = first + i < rows ? load4<kVec>(x + (first + i) * kLanes + 4 * g)
+                            : make_uint4(0, 0, 0, 0);
+  }
+#pragma unroll
+  for (int i = 1; i < kCumRowsPerWarp; ++i) v[i] = add4(v[i], v[i - 1]);
+  warp_tot[b][g] = v[kCumRowsPerWarp - 1];
+  __syncthreads();
+  uint4 above = make_uint4(0, 0, 0, 0);
+#pragma unroll
+  for (int w = 0; w < kCumWarps - 1; ++w) {
+    if (w < b) above = add4(above, warp_tot[w][g]);
+  }
+#pragma unroll
+  for (int i = 0; i < kCumRowsPerWarp; ++i) {
+    uint4 c = add4(v[i], above);
+    c.y += c.x;
+    c.z += c.y;
+    c.w += c.z;
+    unsigned inc = c.w;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       const unsigned y = __shfl_up_sync(0xffffffffu, inc, d);
-      if (lane >= d) inc += y;
+      if (g >= d) inc += y;
     }
-    const unsigned before = inc - run;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      out[r * kLanes + 4 * lane + q] = (int)(v[q] + before);
+    const unsigned before = inc - c.w;
+    if (first + i < rows) {
+      store4<kVec>(out + (first + i) * kLanes + 4 * g,
+                   add4(c, make_uint4(before, before, before, before)));
     }
   }
 }
@@ -203,27 +258,39 @@ cap_bulk_copy(const int* __restrict__ x, int* __restrict__ out, int steps) {
   }
 }
 
+// One block; x holds `quads` groups of 4 ints (any count: 64-bit indices).
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-cap_carry(const int* __restrict__ x, int* __restrict__ out, int tiles) {
+cap_carry(const int* __restrict__ x, int* __restrict__ out,
+          long long quads) {
   __shared__ unsigned warp_tot[kWarps];
-  const int lane = threadIdx.x & 31;
-  unsigned acc = 0;                             // thread 0 carries the sum
-  for (int t = 0; t < tiles; ++t) {
-    unsigned part = 0;
-    for (int e = threadIdx.x; e < kStepRows * kLanes; e += kThreads) {
-      part += (unsigned)x[t * kStepRows * kLanes + e];
+  unsigned part = 0;
+  for (long long base = threadIdx.x; base < quads;
+       base += kThreads * kCarryLoads) {
+    uint4 v[kCarryLoads];
+#pragma unroll
+    for (int k = 0; k < kCarryLoads; ++k) {
+      const long long q = base + k * kThreads;
+      v[k] = q < quads ? load4<kVec>(x + 4 * q) : make_uint4(0, 0, 0, 0);
     }
 #pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-      part += __shfl_xor_sync(0xffffffffu, part, d);
+    for (int k = 0; k < kCarryLoads; ++k) {
+      part += v[k].x + v[k].y + v[k].z + v[k].w;
     }
-    if (lane == 0) warp_tot[threadIdx.x >> 5] = part;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int w = 0; w < kWarps; ++w) acc += warp_tot[w];
-      out[0] = (int)acc;
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    part += __shfl_xor_sync(0xffffffffu, part, d);
+  }
+  if ((threadIdx.x & 31) == 0) warp_tot[threadIdx.x >> 5] = part;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    unsigned t = threadIdx.x < kWarps ? warp_tot[threadIdx.x] : 0;
+#pragma unroll
+    for (int d = kWarps / 2; d > 0; d >>= 1) {
+      t += __shfl_xor_sync(0xffffffffu, t, d);
     }
-    __syncthreads();
+    if (threadIdx.x == 0) out[0] = (int)t;
   }
 }
 
@@ -265,7 +332,9 @@ int gdf_probe_cap_dyn_store(const void* x, void* out, int rows,
 int gdf_probe_cap_cumsum2d(const void* x, void* out, int rows,
                            void* stream) {
   if (rows < 1 || rows > kCumRows) return (int)cudaErrorInvalidValue;
-  cap_cumsum2d<<<1, kLanes, 0, as_stream(stream)>>>(
+  auto* kernel = aligned16(x) && aligned16(out) ? &cap_cumsum2d<true>
+                                                : &cap_cumsum2d<false>;
+  kernel<<<1, kCumWarps * 32, 0, as_stream(stream)>>>(
       static_cast<const int*>(x), static_cast<int*>(out), rows);
   GDF_LAUNCH_CHECK();
   return 0;
@@ -325,8 +394,10 @@ int gdf_probe_cap_bulk_copy(const void* x, void* out, int steps,
 // x int32 (8 * tiles, 128); out int32 (1, 1).
 int gdf_probe_cap_carry(const void* x, void* out, int tiles, void* stream) {
   if (tiles < 1) return (int)cudaErrorInvalidValue;
-  cap_carry<<<1, kThreads, 0, as_stream(stream)>>>(
-      static_cast<const int*>(x), static_cast<int*>(out), tiles);
+  auto* kernel = aligned16(x) ? &cap_carry<true> : &cap_carry<false>;
+  kernel<<<1, kThreads, 0, as_stream(stream)>>>(
+      static_cast<const int*>(x), static_cast<int*>(out),
+      (long long)tiles * kStepRows * kQuads);
   GDF_LAUNCH_CHECK();
   return 0;
 }

@@ -20,10 +20,12 @@ operator would answer otherwise:
     to 0 (XLA's convert; torch's is undefined out of range);
   - a denormal float is zero (`core/bits.py::flush_denormals`) on the
     inputs of the comparisons, float <-> float casts (and their outputs),
-    floor-division and sqrt / floor / ceil / log, so row sets and integral
-    results do not depend on it. add / sub / mul / div keep torch's
-    denormals: flushing their results would cost a pass per call and
-    change no row set.
+    division, floor-division and sqrt / floor / ceil / log, so row sets
+    and integral results do not depend on it. Each input is flushed in
+    its own dtype, before any promotion: a float32 denormal widened to
+    float64 is a normal number. add / sub / mul keep torch's denormals,
+    and no result is flushed: a denormal result against a zero changes
+    no row set.
 """
 from __future__ import annotations
 
@@ -151,10 +153,9 @@ def _promote(a: torch.Tensor, b: torch.Tensor):
 
 
 def _floordiv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    a, b = _promote(a, b)
+    a, b = _promote(flush_denormals(a), flush_denormals(b))
     if a.is_floating_point():
         # CPython's float_divmod, as jnp.floor_divide
-        a, b = flush_denormals(a), flush_denormals(b)
         mod = torch.fmod(a, b)
         div = (a - mod) / b
         adjust = (mod != 0) & (torch.sign(b) != torch.sign(mod))
@@ -167,7 +168,7 @@ def _floordiv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    a, b = _promote(a, b)
+    a, b = _promote(flush_denormals(a), flush_denormals(b))
     if not a.is_floating_point():
         wide = torch.float64 if a.dtype == torch.int64 else torch.float32
         a, b = a.to(wide), b.to(wide)
@@ -197,16 +198,15 @@ def binary_op(a: Column, b: Column, op: str) -> Column:
     """Arithmetic/bitwise binary op, valid where both inputs are
     (binaryops.cu:22-24); comparison ops return INT8 0/1. The output keeps
     `a`'s logical dtype where the result has its physical dtype."""
+    if op in _CMP:
+        return compare(a, b, op)
     require(a.size == b.size, GDFStatus.GDF_COLUMN_SIZE_MISMATCH)
-    valid = mask_and(a.valid, b.valid)
     if op in _ARITH:
         out = _ARITH[op](a.data, b.data)
         info = a.info if out.dtype == a.info.physical else \
             DtypeInfo(dtype_from_numpy(out.dtype))
-        return Column(data=out, valid=valid, info=info, name=a.name)
-    if op in _CMP:
-        out = _CMP[op](a.data, b.data).to(torch.int8)
-        return Column(data=out, valid=valid, info=_INT8, name=a.name)
+        return Column(data=out, valid=mask_and(a.valid, b.valid), info=info,
+                      name=a.name)
     raise GDFError(GDFStatus.GDF_INVALID_API_CALL, f"unknown binop {op!r}")
 
 

@@ -24,7 +24,7 @@ from typing import Sequence
 import torch
 
 from ..core.bitmask import mask_or
-from ..core.bits import flush_float_keys
+from ..core.bits import flush_denormals, flush_float_keys
 from ..core.column import Column
 from ..core.dtypes import DtypeInfo, GDFDtype, dtype_from_numpy
 from ..core.errors import GDFStatus, require
@@ -249,6 +249,10 @@ def _scan_agg(vals, avalid, starts, op, group_live, out_name):
                           name=out_name)
         return [avg, cnt > 0], build_avg
 
+    if op != "sum" and vals.dtype != torch.float64:
+        # a denormal is zero (float64 min / max flush through their int64
+        # encodings, engine._seg_select)
+        vals = flush_denormals(vals)
     if avalid is not None:
         vals = torch.where(avalid, vals, _agg_identity(op, vals.dtype))
     if op == "sum":

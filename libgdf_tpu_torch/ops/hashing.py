@@ -103,9 +103,16 @@ def fnv1a_64_columns(columns) -> torch.Tensor:
 
 
 def identity_hash_32(data: torch.Tensor) -> torch.Tensor:
-    """≅ IdentityHash (hash_functions.cuh:129-161): static_cast to u32
-    (integers modulo 2^32)."""
-    return data.to(torch.int64) & M32
+    """≅ IdentityHash (hash_functions.cuh:129-161): static_cast to u32.
+    Integers wrap modulo 2^32; floats take XLA's saturating convert: NaN
+    and x <= -1 give 0, x >= 2^32 gives 2^32 - 1, the rest truncate toward
+    zero. Floats are clamped in float64 (exact for every float dtype)
+    before the integer conversion, which is undefined for inf and NaN."""
+    if not data.is_floating_point():
+        return data.to(torch.int64) & M32
+    x = data.to(torch.float64)
+    x = torch.where(torch.isnan(x), 0.0, x.clamp(0.0, float(M32)))
+    return x.to(torch.int64)
 
 
 def hash_combine(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,7 @@ from typing import Sequence
 
 import torch
 
+from ..core.bits import flush_denormals
 from ..core.column import Column
 from ..core.dtypes import DtypeInfo, GDFDtype
 from ..core.errors import GDFStatus, require
@@ -68,7 +69,10 @@ def _part_first(seg_start):
 
 def _minmax_ident(vals, valid, op):
     """(identity, invalid rows replaced by it), in the input dtype: min and
-    max are exact there; only the output is cast to float64."""
+    max are exact there; only the output is cast to float64. A denormal
+    value is zero (`core/bits.py::flush_denormals`), as XLA's min / max
+    read it."""
+    vals = flush_denormals(vals)
     if vals.is_floating_point():
         ident = math.inf if op == "min" else -math.inf
     else:
@@ -141,6 +145,13 @@ def _windowed(vals, valid, seg_start, preceding: int, op: str):
     hv = valid.to(torch.int32)                  # any-valid ladder (OR)
     if preceding >= n:
         run = _segmented_running(cur, seg_start, op)
+        if op == "min" and cur.dtype == torch.float64:
+            # the engine orders float64 NaN greatest (the sorts' order), so
+            # a NaN never wins its min; a running min propagates it from
+            # the partition's first valid NaN on (max agrees already)
+            nan_seen = _segmented_running(torch.isnan(cur).to(torch.int32),
+                                          seg_start, "max") > 0
+            run = torch.where(nan_seen, math.nan, run)
         has = _segmented_running(hv, seg_start, "sum") > 0
         return run.to(torch.float64), has
     vop = torch.minimum if op == "min" else torch.maximum

@@ -8,7 +8,10 @@ what its probe computes (P-12, `p5`, is `gather.lane_gather` at int32):
                           x[0, 0] + 3 (an offset whose rows leave the
                           scratch raises, as the probe's store does in
                           interpret mode); out = its first rows
-  cap_cumsum2d        p2  cumsum over axis 0, then over axis 1
+  cap_cumsum2d        p2  cumsum over axis 0, then over axis 1: the tile
+                          on chip at once (8 rows a warp as 16-byte loads),
+                          a blocked column scan across the warps, each
+                          warp's 8 row scans at once
   cap_onehot_compact  p3  stable compaction of each 256-element tile (the
                           TPU's one-hot matrix product), a warp a tile: a
                           scan of the lanes' kept counts, a staging row in
@@ -18,7 +21,11 @@ what its probe computes (P-12, `p5`, is `gather.lane_gather` at int32):
   cap_bulk_copy       p4  step b stages x[8b:8b+8] + 1000 and copies it to
                           out rows [5b, 5b + 8) with cp.async.bulk; rows past
                           5 (steps - 1) + 8 are not written (nor on the TPU)
-  cap_carry           p6  the int32 sum of x, carried across 8-row tiles
+  cap_carry           p6  the int32 sum of x, carried across 8-row tiles:
+                          one block, every load of a 16 KB chunk issued
+                          before the first add, the carry a sum in
+                          registers (unsigned addition wraps and is
+                          associative), one block reduction
   cap_dyn_loop        p7  out[0] = sum of x[i & 7] for i < (x[0, 0] & 7) + 2
 
 Integer arithmetic wraps, as int32 does in jnp.

@@ -1,7 +1,7 @@
 """Time probe kernels of this checkout and of another one in turns, on one card.
 
     python -m libgdf_tpu_torch.probes.turns OTHER [--reps 20] [--rounds 2]
-        [--cases P-1,P-10]
+        [--cases P-1,P-10,W]
 
 OTHER is an unpacked copy of another commit (for the parent:
 `git archive HEAD`) in a git-ignored directory such as `build/parent`. Its
@@ -14,9 +14,11 @@ The cases, on the inputs of `chip_smoke.py`'s probe path: P-1
 (`flat_take` of the 64K table) and P-5 (`flat_take` of the (512, 128)
 table) at the probe's own shapes and at 81,920 x 128 indices, P-6 and P-7
 (`roll_static`, `roll_dynamic`: 1024 rotations of the probe's (512, 128)
-block) and P-10 (`cap_onehot_compact`) at the probe's 256 elements and
-at 40,960 tiles of 256. `--cases` keeps those whose name (before any "@")
-is listed. Both builds must equal the plain version exactly. Then, per
+block), P-9 (`cap_cumsum2d` of the probe's (64, 128) ones), P-10
+(`cap_onehot_compact`) at the probe's 256 elements and at 40,960 tiles
+of 256, and P-13 (`cap_carry`) at the probe's 4 tiles of ones and at
+1000 tiles of random int32. `--cases` keeps those whose name (before any
+"@") is listed. Both builds must equal the plain version exactly. Then, per
 round, the two are timed in turns (other, this, this, other): CUDA-event
 ms per call over `reps` back-to-back calls, and device ms per call from
 torch.profiler over every kernel in the window, with the kernels the
@@ -27,11 +29,18 @@ for P-1 `torch.sort` of the packed words by block; for P-10 `x[keep]`
 padded with zeros; for the rolls one `torch.roll(x, 1, 1)`, a single
 rotation, so its times are also given times the repetitions
 (`library_x_reps`: no one PyTorch call computes the probe's chain of
-rotations without folding it). The bound is the bytes read once and
+rotations without folding it); for P-9 one `torch.cumsum(x, 0)`, given
+times 2 (the function is that cumsum and another over axis 1); for P-13
+`x.sum(dtype=torch.int32)`. The bound is the bytes read once and
 written once over the H100's 3.35 TB/s or, for the rolls, the 32-bit
 operations (a move and an add an element a repetition) over its 67 T/s,
-whichever is larger. It prints the card line, one line per case and a
-JSON line of every number; it exits 1 without CUDA or if a check fails.
+whichever is larger. Case W times, in the same turns, the analytic
+path's `window_min_rows` and `window_max_range` of both builds on
+chip_smoke.py's 10M-row table W (host clock around a call ending in a
+device sync, as chip_smoke.py's rows/s), after checking that the two
+builds' outputs are equal. It prints the card line, one line per
+case and a JSON line of every number; it exits 1 without CUDA or if a
+check fails.
 """
 from __future__ import annotations
 
@@ -41,16 +50,23 @@ import importlib.util
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+import libgdf_tpu_torch
 from . import caps, gather, roll, tilesort
 
 HBM_BYTES_PER_MS = 3.35e12 / 1e3        # H100 SXM data sheet, at 700 W
 SCALAR_OPS_PER_MS = 67e12 / 1e3          # 32-bit, outside the tensor cores
 SCALE_ROWS = 81_920
+N_W = 10_000_000
+# chip_smoke.py's window_min_rows and window_max_range
+WINDOWS = {"window_min_rows": dict(reduction="min", preceding=10_000),
+           "window_max_range": dict(reduction="max", preceding=N_W // 4,
+                                    frame="range")}
 COMPACT_SCALE_TILES = 40_960
 LIBRARY = {"sublane": lambda x, i64: torch.take_along_dim(x, i64, 0),
            "flat": lambda t, i64: t.reshape(-1)[i64]}
@@ -66,8 +82,9 @@ def other_probes(root: Path) -> dict:
     pkg = importlib.util.module_from_spec(spec)
     sys.modules[name] = pkg
     spec.loader.exec_module(pkg)
-    return {mod: importlib.import_module(f"{name}.probes.{mod}")
+    mods = {mod: importlib.import_module(f"{name}.probes.{mod}")
             for mod in ("caps", "gather", "roll", "tilesort")}
+    return {**mods, "pkg": pkg}
 
 
 def _nbytes(*tensors) -> int:
@@ -85,9 +102,9 @@ def _case(key, shapes, this, other, plain, library, moved, ops=0,
 
 
 def cases(dev: torch.device, old: dict, seed: int = 0) -> list:
-    """P-1, the gathers P-3, P-4, P-5, the rolls P-6, P-7 and P-10, drawn
-    as chip_smoke.py's probe path draws them (the lane gather's draws
-    included, then dropped)."""
+    """P-1, the gathers P-3, P-4, P-5, the rolls P-6, P-7, P-9, P-10 and
+    P-13, drawn as chip_smoke.py's probe path draws them (the lane
+    gather's draws included, then dropped; P-13's 1000 tiles last)."""
     out = []
     n = tilesort.DEFAULT_N
     key = torch.as_tensor(np.random.default_rng(0).integers(
@@ -138,8 +155,16 @@ def cases(dev: torch.device, old: dict, seed: int = 0) -> list:
         2 * _nbytes(rx) + _nbytes(rs), 2 * roll.REPS * rx.numel(),
         roll.REPS))
 
-    px, pk = (torch.as_tensor(a, device=dev)
-              for a in caps.probe_inputs()["p3"])
+    inputs = caps.probe_inputs()
+    t2 = torch.as_tensor(inputs["p2"][0], device=dev)
+    out.append(_case(
+        "P-9", f"int32 {tuple(t2.shape)}", lambda: caps.cap_cumsum2d(t2),
+        lambda f=old["caps"].cap_cumsum2d: f(t2),
+        lambda: caps.cap_cumsum2d_plain(t2),
+        lambda: torch.cumsum(t2, 0, dtype=torch.int32), 2 * _nbytes(t2),
+        library_x=2))
+
+    px, pk = (torch.as_tensor(a, device=dev) for a in inputs["p3"])
     m = COMPACT_SCALE_TILES * caps.COMPACT_TILE
     cx = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, m).astype(np.int32),
                          device=dev)
@@ -157,6 +182,72 @@ def cases(dev: torch.device, old: dict, seed: int = 0) -> list:
             f(x, keep),
             lambda x=x, keep=keep: caps.cap_onehot_compact_plain(x, keep),
             library, 3 * _nbytes(x)))
+
+    big = rng.integers(-2 ** 31, 2 ** 31, (8 * 1000, caps.LANES))
+    for k, x in (("P-13", torch.as_tensor(inputs["p6"][0], device=dev)),
+                 ("P-13@scale", torch.as_tensor(big.astype(np.int32),
+                                                device=dev))):
+        out.append(_case(
+            k, f"int32 {tuple(x.shape)}", lambda x=x: caps.cap_carry(x),
+            lambda f=old["caps"].cap_carry, x=x: f(x),
+            lambda x=x: caps.cap_carry_plain(x),
+            lambda x=x: x.sum(dtype=torch.int32), _nbytes(x) + 4))
+    return out
+
+
+def window_runs(dev: torch.device, this_pkg, other_pkg) -> dict:
+    """{window: (this run, other run)} for the analytic path's two windows
+    whose min / max flush their values (chip_smoke.py's WINDOWS), on its
+    table W: 10M rows drawn as chip_smoke.make_analytic_data draws them
+    (50 partitions, a permuted order key, a float32 value with 10% NULL)."""
+    n = N_W
+    rng = np.random.default_rng(0)
+    cols = {"p": rng.integers(0, 50, n).astype(np.int32),
+            "o": rng.permutation(n).astype(np.int32),
+            "v": rng.standard_normal(n).astype(np.float32)}
+    rng.integers(-2 ** 40, 2 ** 40, n)          # W's q and x, not used
+    rng.standard_normal(n)
+    nulls = {"v": rng.random(n) < 0.10}
+    runs = {}
+    for pkg, who in ((other_pkg, 1), (this_pkg, 0)):
+        W = pkg.Table.from_dict(cols, nulls, device=dev)
+        for name, kw in WINDOWS.items():
+            runs.setdefault(name, [None, None])[who] = (
+                lambda pkg=pkg, W=W, kw=kw: pkg.ops.window_function(
+                    W, "v", order_by=["o"], partition_by=["p"], **kw))
+    return runs
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host ms per call of fn() ending in a device sync, after a warm-up
+    (what chip_smoke.py's rows/s read)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def time_windows(dev, this_pkg, other_pkg, reps, rounds, card) -> list:
+    """The two windows of both builds in turns (other, this, this, other):
+    rows/s per timing, each build's output equal to the other's."""
+    out = []
+    for name, (this, other) in window_runs(dev, this_pkg, other_pkg).items():
+        a, b = this(), other()
+        if not (_equal(a.data, b.data) and torch.equal(a.valid, b.valid)):
+            raise RuntimeError(f"{name}: the two builds differ")
+        del a, b
+        rate = {"other": [], "this": []}
+        for _ in range(rounds):
+            for who in ("other", "this", "this", "other"):
+                ms = host_ms(this if who == "this" else other, reps)
+                rate[who].append(N_W / (ms / 1e3))
+        out.append({"window": name, "rows": N_W, "rows_per_s": rate})
+        print(f"{name}: " + " ".join(
+            f"{who}_rows_per_s=" + ",".join(f"{r:.4e}" for r in rate[who])
+            for who in rate) + f" ({card})", flush=True)
     return out
 
 
@@ -224,7 +315,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--cases", default=None,
                     help="comma-separated names (P-1, P-3, P-4, P-5, P-6, "
-                         "P-7, P-10); default all")
+                         "P-7, P-9, P-10, P-13, and W for the windows); "
+                         "default all")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("turns: CUDA is not available", file=sys.stderr)
@@ -277,7 +369,12 @@ def main(argv=None) -> int:
                f"library_x_reps_device_ms="
                f"{row['library_x_reps_device_ms']}" if lib_x != 1 else "")
             + f" bound_ms={row['bound_ms']:.4f} ({card})", flush=True)
-    print(json.dumps({"turns": results, "card": card}), flush=True)
+    windows = []
+    if keep is None or "W" in keep:
+        windows = time_windows(dev, libgdf_tpu_torch, old["pkg"], args.reps,
+                               args.rounds, card)
+    print(json.dumps({"turns": results, "windows": windows, "card": card}),
+          flush=True)
     return 0
 
 

@@ -1000,3 +1000,182 @@ def test_probe_launch_counts(dev):
     for name in ("p1", "p2", "p3", "p4", "p6", "p7"):
         caps.run_probe(name, dev)
     assert probes.launch_counts() == dict.fromkeys(probes.wrappers(), 1)
+
+
+@pytest.mark.parametrize("rows", [1, 63, 64])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cap_cumsum2d_edges(dev, rows, aligned):
+    """P-9 at one row, one row short of the 64-row tile and the full tile,
+    over full-range int32 (every column and row sum wraps); a view that
+    starts one element in takes the 4-byte path."""
+    from libgdf_tpu_torch.probes import caps
+    rng = np.random.default_rng(rows)
+    x = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (rows, 128))
+                        .astype(np.int32), device=dev)
+    if not aligned:
+        buf = torch.empty(rows * 128 + 1, dtype=torch.int32, device=dev)
+        buf[1:] = x.view(-1)
+        x = buf[1:].view(rows, 128)
+    _same(caps.cap_cumsum2d(x), caps.cap_cumsum2d_plain(x))
+
+
+@pytest.mark.parametrize("tiles", [1, 4, 1000])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cap_carry_edges(dev, tiles, aligned):
+    """P-13 at one tile, the probe's 4 and 1000 (many 16 KB chunks), over
+    full-range int32 whose sum wraps."""
+    from libgdf_tpu_torch.probes import caps
+    rng = np.random.default_rng(tiles)
+    x = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (8 * tiles, 128))
+                        .astype(np.int32), device=dev)
+    if not aligned:
+        buf = torch.empty(x.numel() + 1, dtype=torch.int32, device=dev)
+        buf[1:] = x.view(-1)
+        x = buf[1:].view(8 * tiles, 128)
+    _same(caps.cap_carry(x), caps.cap_carry_plain(x))
+
+
+# -- the operators' repairs C3-C6 (ROADMAP queue C): the card against the
+# port's own CPU run on the same inputs --------------------------------------
+
+def _tables(cols, nulls, dev):
+    from libgdf_tpu_torch.interop import from_numpy
+    return (from_numpy(cols, nulls, device=dev),
+            from_numpy(cols, nulls, device="cpu"))
+
+
+def _same_column(got, want):
+    _same(got.data.cpu(), want.data)
+    assert (got.valid is None) == (want.valid is None)
+    if want.valid is not None:
+        assert torch.equal(got.valid.cpu(), want.valid)
+
+
+def _denormal_values(rng, dtype, n):
+    d = 1e-40 if dtype == np.float32 else 1e-310
+    tiny = np.finfo(dtype).tiny
+    return rng.choice(np.array([0.0, -0.0, d, -d, 2 * d, tiny, -tiny, 1.5,
+                                -1.5, 3.0, np.nan, np.inf], dtype), n)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_denormal_compares_and_divisions_on_the_card(dev, dtype):
+    """C3 / C6: comparisons, div and floordiv of denormals against the same
+    dtype, the other float dtype and int32 / int64, both ways round."""
+    from libgdf_tpu_torch import Column, ops
+    n = 1_000_000
+    rng = np.random.default_rng(31)
+    other = np.float64 if dtype == np.float32 else np.float32
+    ints = rng.integers(-3, 4, n)
+    x = _denormal_values(rng, dtype, n)
+    for p in (_denormal_values(rng, dtype, n),
+              _denormal_values(rng, other, n), ints.astype(np.int32),
+              ints.astype(np.int64)):
+        for a, b in ((x, p), (p, x)):
+            ga, gb = (Column.from_array(v, device=dev) for v in (a, b))
+            ca, cb = (Column.from_array(v, device="cpu") for v in (a, b))
+            for op in ("eq", "ne", "lt", "le", "gt", "ge", "div",
+                       "floordiv"):
+                _same_column(ops.binary_op(ga, gb, op),
+                             ops.binary_op(ca, cb, op))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_identity_hash_of_floats_on_the_card(dev, dtype):
+    """C4: the saturating float -> uint32 of the identity hash, with inf,
+    NaN, negatives and values past 2^32 (no float -> int64 conversion of
+    inf or NaN, which is undefined on the card)."""
+    from libgdf_tpu_torch.ops import hashing
+    rng = np.random.default_rng(32)
+    edges = np.array([-1.0, -0.5, -0.0, 0.5, 2.7, np.inf, -np.inf, np.nan,
+                      5e9, 2.0 ** 32, 4294967040.0, 1e-40], dtype)
+    x = np.concatenate([edges, (rng.standard_normal(1_000_000) * 3e9)
+                        .astype(dtype)])
+    a = rng.integers(-5, 5, x.size).astype(np.int64)
+    for cols in ([x], [a, x]):
+        got = hashing.hash_columns([torch.as_tensor(c, device=dev)
+                                    for c in cols], "identity")
+        want = hashing.hash_columns([torch.as_tensor(c) for c in cols],
+                                    "identity")
+        assert torch.equal(got.cpu(), want)
+
+
+def test_groupby_denormal_min_max_on_the_card(dev):
+    """C3: float32 group min / max read a denormal as zero."""
+    from libgdf_tpu_torch import ops
+    n = 1_000_000
+    rng = np.random.default_rng(33)
+    cols = {"k": rng.integers(0, 1000, n).astype(np.int32),
+            "v": _denormal_values(rng, np.float32, n)}
+    cols["v"][np.isnan(cols["v"])] = 1.0
+    nulls = {"v": rng.random(n) < 0.1}
+    gt, ct = _tables(cols, nulls, dev)
+    aggs = [("v", "min", "lo"), ("v", "max", "hi")]
+    g = ops.groupby(gt, ["k"], aggs).compact()
+    c = ops.groupby(ct, ["k"], aggs).compact()
+    assert g.capacity == c.capacity
+    for name in ("k", "lo", "hi"):
+        _same_column(g[name], c[name])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("frame", ["running", "rows", "range"])
+def test_window_denormal_min_max_on_the_card(dev, dtype, frame):
+    """C3: window min / max over denormals in frames longer than one H3
+    tile (the running scan, a 10,000-row ladder, a RANGE sparse table)."""
+    from libgdf_tpu_torch import ops
+    n = 300_000
+    rng = np.random.default_rng(34)
+    d = 1e-40 if dtype == np.float32 else 1e-310
+    cols = {"p": rng.integers(0, 20, n).astype(np.int32),
+            "o": rng.permutation(n).astype(np.int32),
+            "v": rng.choice(np.array([d, -d, 2 * d, 0.0, -0.0,
+                                      np.finfo(dtype).smallest_subnormal],
+                                     dtype), n)}
+    cols["v"][rng.random(n) < 1e-5] = np.nan
+    nulls = {"v": rng.random(n) < 0.1}
+    gt, ct = _tables(cols, nulls, dev)
+    kw = {"running": {}, "rows": dict(preceding=10_000),
+          "range": dict(preceding=20_000, frame="range")}[frame]
+    for red in ("min", "max"):
+        _same_column(
+            ops.window_function(gt, "v", red, partition_by=["p"],
+                                order_by=["o"], **kw),
+            ops.window_function(ct, "v", red, partition_by=["p"],
+                                order_by=["o"], **kw))
+
+
+@pytest.mark.parametrize("first_nan", [4095, 4096, 8191, 8192, 8193,
+                                       61 * 8192 - 1, 999_999, None])
+def test_window_running_min_nan_across_tiles(dev, first_nan):
+    """C5: a float64 running min propagates NaN from its first NaN on; the
+    NaN flag is a segmented max that crosses H3's tile look-back. One
+    partition of 1M rows in order, the first NaN just before or after a
+    tile edge (4096 8-byte or 8192 4-byte elements); None: partitions of
+    3001 rows, NaN and NULL at random."""
+    from libgdf_tpu_torch import ops
+    n = 1_000_000
+    rng = np.random.default_rng(35)
+    cols = {"o": np.arange(n, dtype=np.int32),
+            "v": rng.standard_normal(n)}
+    nulls = None
+    if first_nan is None:
+        cols["p"] = (np.arange(n) // 3001).astype(np.int32)
+        cols["v"][rng.random(n) < 1e-3] = np.nan
+        nulls = {"v": rng.random(n) < 0.05}
+        part = ["p"]
+    else:
+        cols["v"][first_nan] = np.nan
+        cols["v"][first_nan + 1::7919] = np.nan
+        part = []
+    gt, ct = _tables(cols, nulls, dev)
+    got = {}
+    for red in ("min", "max"):
+        got[red] = ops.window_function(gt, "v", red, partition_by=part,
+                                       order_by=["o"])
+        _same_column(got[red], ops.window_function(
+            ct, "v", red, partition_by=part, order_by=["o"]))
+    if first_nan is not None:
+        # np.minimum.accumulate propagates NaN, as the reference does
+        np.testing.assert_array_equal(got["min"].data.cpu().numpy(),
+                                      np.minimum.accumulate(cols["v"]))

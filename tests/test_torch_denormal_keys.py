@@ -61,3 +61,19 @@ def test_groupby_on_denormal_keys(rng, dtype, dropna):
     tk = np_of(tg["k"].data)[:g][valid]
     assert (jk == 0).sum() == 1
     np.testing.assert_array_equal(tk.view(UINT[dtype]), jk.view(UINT[dtype]))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_groupby_min_max_of_denormal_values(rng, dtype):
+    """A denormal value is zero in a group's min and max: group {1e-40,
+    1.0} has min 0.0 in both packages, {-1e-40} max 0.0 (float64 flushes
+    through its sort encoding, float32 by the flush before the scan)."""
+    n = 90
+    cols = {"k": rng.integers(0, 12, n).astype(np.int32),
+            "v": _keys(rng, dtype, n)}
+    cols["v"][cols["k"] == 3] = 1.0
+    jt, tt = make_tables(cols, {"v": rng.random(n) < 0.1})
+    aggs = (("v", "min", "lo"), ("v", "max", "hi"))
+    jg = jax_op("groupby", jt, key_names=("k",), aggs=aggs)
+    tg = tops.groupby(tt, ["k"], aggs)
+    assert_tables_match(jg, tg)

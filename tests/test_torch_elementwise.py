@@ -8,11 +8,14 @@ casts out of range, mixed dtypes) each have their own test.
 
 Denormal floats: a denormal is zero, as on the TPU (XLA flushes them, on
 the CPU too). The port flushes the inputs of the comparisons, float <->
-float casts, floor-division, sqrt / floor / ceil / log and min / max, and
-the denormal tests hold each to the JAX package on columns of zeros,
-+-denormals and finfo.tiny. add / sub / mul / div and the float sums are
-left out on purpose: flushing their results would cost a pass per call
-and change no row set, so there the port keeps torch's denormals.
+float casts, division, floor-division, sqrt / floor / ceil / log and
+min / max, each input in its own dtype before any promotion, and the
+denormal tests hold each to the JAX package on columns of zeros,
++-denormals and finfo.tiny, against the same dtype, the other float dtype
+and int32 / int64 columns, both ways round (and the ABI's typed and
+generic comparisons). add / sub / mul, the float sums and every result
+that is itself denormal are left out on purpose: there the port keeps
+torch's denormals, which differ from a zero and change no row set.
 """
 import itertools
 
@@ -22,7 +25,9 @@ import pytest
 
 import libgdf_tpu
 from libgdf_tpu import ops as jops
+from libgdf_tpu.compat import gdf as jgdf
 from libgdf_tpu_torch import Column, GDFDtype, TimeUnit, ops
+from libgdf_tpu_torch.compat import gdf
 from torch_parity import np_of
 
 DTYPES = (np.int8, np.int32, np.int64, np.float32, np.float64)
@@ -312,6 +317,28 @@ def _denormal_columns(dtype):
     return x, y
 
 
+def _partners(dtype):
+    """The columns a denormal column of `dtype` meets in a binary op: its
+    own dtype's second column, both of the other float dtype's, and int32
+    and int64 columns with zeros (chosen so that no quotient is itself
+    denormal)."""
+    _, y = _denormal_columns(dtype)
+    other = np.float64 if dtype == np.float32 else np.float32
+    ints = np.array([0, 1, -1, 0, 1, 3, -1, -2, 5, 0])
+    return (y, *_denormal_columns(other), ints.astype(np.int32),
+            ints.astype(np.int64))
+
+
+def _both_ways(x):
+    """(JAX, port) column pairs (x, p) and (p, x) for every partner p of
+    the denormal column x."""
+    jx, tx = both(x)
+    for p in _partners(x.dtype.type):
+        jp, tp = both(p)
+        yield (jx, tx), (jp, tp)
+        yield (jp, tp), (jx, tx)
+
+
 def _same_bits(jc, tc):
     """Values exact with the sign of zero; NaN equals NaN."""
     assert_same_column(jc, tc)
@@ -330,6 +357,12 @@ def test_denormal_compares_match_jax(dtype, op):
         assert_same_column(want, ops.compare_scalar(tx, value, op))
     want = jax.jit(lambda a, b: jops.compare(a, b, op))(jx, jy)
     assert_same_column(want, ops.compare(tx, ty, op))
+    for (ja, ta), (jb, tb) in _both_ways(x):
+        assert_same_column(jbinary(ja, jb, op), ops.binary_op(ta, tb, op))
+    sfx = "f32" if dtype == np.float32 else "f64"
+    for name in (f"gdf_{op}_{sfx}", f"gdf_{op}_generic"):
+        assert_same_column(jax.jit(getattr(jgdf, name))(jx, jy),
+                           getattr(gdf, name)(tx, ty))
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -339,7 +372,9 @@ def test_denormal_unary_floordiv_and_casts_match_jax(dtype):
     for op in ("sqrt", "floor", "ceil", "log"):
         _same_bits(jax.jit(lambda c: jops.unary_op(c, op))(jx),
                    ops.unary_op(tx, op))
-    _same_bits(jbinary(jx, jy, "floordiv"), ops.binary_op(tx, ty, "floordiv"))
+    for (ja, ta), (jb, tb) in _both_ways(x):
+        for op in ("div", "floordiv"):
+            _same_bits(jbinary(ja, jb, op), ops.binary_op(ta, tb, op))
     to = "FLOAT64" if dtype == np.float32 else "FLOAT32"
     _same_bits(jax.jit(lambda c: jops.cast(
         c, getattr(libgdf_tpu.GDFDtype, to)))(jx),

@@ -9,7 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+import libgdf_tpu
 import libgdf_tpu.ops.hashing as jh
+from libgdf_tpu.compat import gdf as jgdf
+from libgdf_tpu_torch import Column
+from libgdf_tpu_torch.compat import gdf
 from libgdf_tpu_torch.core import bits
 from libgdf_tpu_torch.ops import hashing as th
 from torch_parity import assert_tables_match, jax_op, make_tables, np_of
@@ -79,6 +83,64 @@ def test_hash_columns(rng, hash_fn, ncols):
                                     hash_fn=hash_fn))
     got = th.hash_columns([torch.as_tensor(c) for c in cols], hash_fn)
     np.testing.assert_array_equal(_u32(got), want)
+
+
+# XLA's float -> uint32 convert saturates: NaN and x <= -1 give 0, x >= 2^32
+# gives 2^32 - 1, the rest truncate toward zero
+FLOAT_EDGES = [-1.0, -0.5, -0.0, 0.0, 0.5, 1.0, 2.7, -1.5, -2.5, 1e-40,
+               np.inf, -np.inf, np.nan, 5e9, 3e9, 2.0 ** 31, 2.0 ** 32,
+               2.0 ** 32 - 1, 4294967040.0, 4294967295.5, 123456.75, 1e300]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("entry", ["hash_columns", "partitions", "abi"])
+def test_identity_hash_of_floats(rng, dtype, entry):
+    """Float columns under the identity hash, through every entry that
+    takes one: the row hash, partition ids and the partitioned table, and
+    the ABI's gdf_hash / gdf_hash_partition (4294967040 is the largest
+    float32 under 2^32; 2^32 - 1, 4294967295.5 and 1e300 round to 2^32
+    and inf in float32)."""
+    with np.errstate(over="ignore"):
+        x = np.array(FLOAT_EDGES * 3, dtype)
+    rng.shuffle(x)
+    n = x.size
+    a = rng.integers(-5, 5, n).astype(np.int32)
+    if entry == "hash_columns":
+        for cols in ([x], [a, x], [x, a]):
+            want = _hash_columns([jnp.asarray(c) for c in cols],
+                                 hash_fn="identity")
+            got = th.hash_columns([torch.as_tensor(c) for c in cols],
+                                  "identity")
+            np.testing.assert_array_equal(_u32(got), np.asarray(want))
+    elif entry == "partitions":
+        jt, tt = make_tables({"a": a, "f": x}, {"f": rng.random(n) < 0.1})
+        for keys in (("f",), ("a", "f")):
+            for p in (4, 7):
+                want = jax_op("partition_ids", jt, key_names=keys,
+                              num_partitions=p, hash_fn="identity")
+                got = th.partition_ids(tt, list(keys), p, "identity")
+                np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        jout, joff = jax_op("hash_partition", jt, key_names=("f", "a"),
+                            num_partitions=5, hash_fn="identity")
+        tout, toff = th.hash_partition(tt, ["f", "a"], 5, "identity")
+        np.testing.assert_array_equal(toff.numpy(), np.asarray(joff))
+        assert_tables_match(jout, tout)
+    else:
+        ja, ta = (libgdf_tpu.Column.from_array(a),
+                  Column.from_array(a, device="cpu"))
+        jf, tf = (libgdf_tpu.Column.from_array(x),
+                  Column.from_array(x, device="cpu"))
+        want = jax.jit(lambda c, d: jgdf.gdf_hash(2, [c, d], "identity"))(
+            jf, ja)
+        got = gdf.gdf_hash(2, [tf, ta], "identity")
+        np.testing.assert_array_equal(np_of(got.data), np_of(want.data))
+        jcols, joffs = jax.jit(lambda c, d: jgdf.gdf_hash_partition(
+            2, [c, d], [0], 4, "identity"))(jf, ja)
+        tcols, toffs = gdf.gdf_hash_partition(2, [tf, ta], [0], 4,
+                                              "identity")
+        np.testing.assert_array_equal(np_of(toffs), np_of(joffs))
+        for jc, tc in zip(jcols, tcols):
+            np.testing.assert_array_equal(np_of(tc.data), np_of(jc.data))
 
 
 def test_hash_combine_bit_exact(rng):

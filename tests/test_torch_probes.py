@@ -21,6 +21,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+import libgdf_tpu_torch
 from libgdf_tpu_torch import probes
 from libgdf_tpu_torch.probes import caps, gather, roll, tilesort, turns
 
@@ -838,19 +839,32 @@ def test_mains_need_cuda_unless_asked(monkeypatch, capsys):
 
 def test_turns_cases_on_the_cpu(monkeypatch, capsys):
     """probes/turns.py's cases, this package standing in for the other on
-    CPU tensors: P-1, the gathers, the rolls and P-10 with their bounds
-    (the rolls' by operations, their library call one rotation of the
-    repetitions); at the probes' own shapes each run equals its plain
-    version. Without CUDA its main exits 1."""
+    CPU tensors: P-1, the gathers, the rolls, P-9, P-10 and P-13 with their
+    bounds (the rolls' by operations, their library call one rotation of
+    the repetitions; P-9's one of its two cumsums); at the probes' own
+    shapes each run equals its plain version. Without CUDA its main exits
+    1."""
     this = {"caps": caps, "gather": gather, "roll": roll,
             "tilesort": tilesort}
     cases = turns.cases(torch.device("cpu"), this)
     assert [c["key"] for c in cases] == [
         "P-1", "P-3", "P-3@scale", "P-4", "P-4@scale", "P-5", "P-5@scale",
-        "P-6", "P-7", "P-10", "P-10@scale"]
+        "P-6", "P-7", "P-9", "P-10", "P-10@scale", "P-13", "P-13@scale"]
     bound = {c["key"]: c["bound_ms"] * turns.HBM_BYTES_PER_MS for c in cases}
     assert bound["P-1"] == 16 * tilesort.DEFAULT_N
     assert bound["P-10@scale"] == 12 * turns.COMPACT_SCALE_TILES * 256
+    for k, moved in (("P-9", 2 * 4 * 64 * 128), ("P-13", 4 * 32 * 128 + 4),
+                     ("P-13@scale", 4 * 8000 * 128 + 4)):
+        assert bound[k] == pytest.approx(moved, rel=1e-12)
+    by_key = {c["key"]: c for c in cases}
+    p9 = by_key.pop("P-9")
+    assert p9["library_x"] == 2
+    assert torch.equal(torch.cumsum(p9["library"](), 1, dtype=torch.int32),
+                       p9["plain"]())
+    for k in ("P-13", "P-13@scale"):
+        assert torch.equal(by_key[k]["library"]().reshape(1, 1),
+                           by_key[k]["plain"]())
+        assert torch.equal(by_key[k]["this"](), by_key[k]["plain"]())
     rolls = [c for c in cases if c["key"] in ("P-6", "P-7")]
     x = torch.as_tensor(roll.probe_inputs()[0])
     for c in rolls:
@@ -858,11 +872,19 @@ def test_turns_cases_on_the_cpu(monkeypatch, capsys):
                                  / turns.SCALAR_OPS_PER_MS)
         assert c["library_x"] == roll.REPS
         assert torch.equal(c["library"](), torch.roll(x, 1, 1))
-    assert all(c["library_x"] == 1 for c in cases if c not in rolls)
+    assert all(c["library_x"] == 1 for c in by_key.values()
+               if c not in rolls)
     for c in cases:
         if "@" not in c["key"] and c["key"] != "P-1":
             assert turns._equal(c["this"](), c["plain"]())
             assert turns._equal(c["other"](), c["plain"]())
+    monkeypatch.setattr(turns, "N_W", 1000)
+    runs = turns.window_runs(torch.device("cpu"), libgdf_tpu_torch,
+                             libgdf_tpu_torch)
+    assert list(runs) == ["window_min_rows", "window_max_range"]
+    for this, other in runs.values():
+        a, b = this(), other()
+        assert turns._equal(a.data, b.data) and torch.equal(a.valid, b.valid)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert turns.main(["build/parent"]) == 1
     assert "CUDA" in capsys.readouterr().err

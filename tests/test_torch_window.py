@@ -149,6 +149,69 @@ def test_range_full_span_power_of_two():
                                   np.minimum.accumulate(cols["v"]))
 
 
+# frame -> window_function's frame arguments
+FRAMES = {"running": dict(preceding=None), "rows": dict(preceding=5),
+          "range": dict(preceding=30, frame="range")}
+
+
+@pytest.mark.parametrize("vdtype", [np.float32, np.float64])
+@pytest.mark.parametrize("frame", list(FRAMES))
+def test_denormal_min_max(rng, vdtype, frame):
+    """A denormal value is zero in every min / max frame (ROW running, ROW
+    bounded, RANGE), as XLA's min / max read it."""
+    cols, nulls = _table(rng, nparts=40, vdtype=vdtype)
+    info = np.finfo(vdtype)
+    d = vdtype(1e-40) if vdtype == np.float32 else vdtype(1e-310)
+    cols["v"] = rng.choice(
+        np.array([d, -d, 2 * d, info.smallest_subnormal, 0.0, -0.0, 1.0,
+                  -1.0], vdtype), N, p=[.25, .25, .2, .1, .05, .05, .05, .05])
+    _check(cols, nulls, reds=("min", "max"), partition_by=["p"],
+           order_by=["o"], **FRAMES[frame])
+
+
+def _first_in_order(cols, part):
+    """Row index of partition `part`'s first row in window order."""
+    rows = np.flatnonzero(cols["p"] == part)
+    return rows[np.argmin(cols["o"][rows])]
+
+
+@pytest.mark.parametrize("vdtype", [np.float64, np.float32])
+@pytest.mark.parametrize("frame", ["running", "rows"])
+@pytest.mark.parametrize("partitioned", [True, False])
+def test_nan_min_max(rng, vdtype, frame, partitioned):
+    """NaN and +-inf values with nulls: a valid NaN wins every min and max
+    frame it is in, from there on in a running frame; a NULL NaN does not
+    count. Partition 0's first row in order is a valid NaN, partition 1's a
+    NULL one."""
+    cols, nulls = _table(rng, vdtype=vdtype)
+    v = cols["v"]
+    v[rng.random(N) < 0.04] = np.nan
+    v[rng.random(N) < 0.02] = np.inf
+    v[rng.random(N) < 0.02] = -np.inf
+    for part, null in ((0, False), (1, True)):
+        first = _first_in_order(cols, part)
+        v[first], nulls["v"][first] = np.nan, null
+    _check(cols, nulls, reds=("min", "max"),
+           partition_by=["p"] if partitioned else (), order_by=["o"],
+           **FRAMES[frame])
+
+
+@pytest.mark.parametrize("values", [
+    [3.0, np.nan, 1.0, 2.0, -1.0],
+    [3.0, np.nan, 1.0, 2.0, 1.0, -np.inf, np.inf]])
+def test_running_min_propagates_nan(values):
+    """float64 [3, NaN, 1, 2, -1] in order: running min 3 NaN NaN NaN NaN
+    in both packages."""
+    n = len(values)
+    cols = {"o": np.arange(n, dtype=np.int32),
+            "v": np.asarray(values, np.float64)}
+    _check(cols, reds=("min", "max"), order_by=["o"])
+    t = tops.window_function(make_tables(cols)[1], "v", "min",
+                             order_by=["o"])
+    np.testing.assert_array_equal(np_of(t.data),
+                                  [3.0] + [np.nan] * (n - 1))
+
+
 @pytest.mark.parametrize("kw,status", [
     (dict(reduction="median"), GDFStatus.GDF_INVALID_AGGREGATOR),
     (dict(preceding=-5, order_by=["o"], frame="range"),
