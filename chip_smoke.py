@@ -17,7 +17,11 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    enqueue a call.
    H2 is also timed at int64 and float64 over 10M elements (its instances
    that replace the TPU's K4a and K5a), and H3 at 10M for an int64 sum
-   (K4b), a float64 sum (K5b) and an int64 max over encodings (K6). The
+   (K4b), a float64 sum (K5b) and an int64 max over encodings (K6). A
+   float sum reads a denormal input as zero, folded into the kernel's
+   load: H2's and H3's float32 and float64 sums equal their plain versions
+   (flush, then scan) exactly on denormals and multiples of finfo.tiny at
+   the edge sizes. The
    look-backs of H1, H2 and H3 are checked for races: H2's 10M ones scan
    to exactly 1..n (int32 and int64, forward and reverse); H3's 10M ones
    with no flag sum to exactly 1..n and with a flag every 100,003 rows to
@@ -27,17 +31,24 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    segmented sum and one compaction are bit-identical. Each kernel's bound
    is the bytes it must move (inputs read once, outputs written once) over
    the H100's 3.35 TB/s.
-   Then it checks the repaired faults C3-C6 (ROADMAP queue C) on the card:
+   Then it checks the repaired faults C3-C8 (ROADMAP queue C) on the card:
    the faults' examples give the JAX package's answers (a float32
    denormal compares equal to 0, a denormal divisor gives NaN, float32
    -1e-40 // float64 3.0 is 0, the identity hash of a float saturates,
-   a float64 running min propagates NaN), and 22 cases over 1M rows equal
-   the port's CPU run exactly: comparisons, div and floordiv of denormals
-   against each float dtype and int64, both ways round; the identity hash
-   of floats with inf, NaN and values past 2^32; groupby and window
-   min / max of denormals (ROW running, ROW over 10,000 rows, RANGE); and
-   the float64 running min with its first NaN just before and after H3's
-   tile edges.
+   a float64 running min propagates NaN; a denormal is zero in add / mul,
+   in a float32 -> float64 widening, in the sum / product reductions,
+   prefix sums, groupby sum / avg, the window sum family and the exact
+   quantiles; a bitwise op on floats raises TypeError), and 26 cases over
+   1M rows equal the port's CPU run exactly: comparisons, div, floordiv,
+   add, sub and mul of denormals against each float dtype and int64, both
+   ways round; the identity hash of floats with inf, NaN and values past
+   2^32; groupby and window min / max of denormals (ROW running, ROW over
+   10,000 rows, RANGE); the sums of denormals (reductions, prefix sums,
+   groupby sum / count / avg, the window sum family in the three frames,
+   quantiles); the window stddev (exactly numpy's sqrt of the CPU run's
+   var, and the CPU run's own within 1 ulp of it: torch's CPU float64
+   sqrt is not always correctly rounded); and the float64 running min with
+   its first NaN just before and after H3's tile edges.
 4. Drives the main path at full size: a 10M-row fact table against a
    1M-row dimension, filter -> inner join -> groupby -> order_by, then a
    10M x 1M inner join whose build side repeats each key 4 times.
@@ -99,7 +110,8 @@ Run from the root of a checkout, on a machine with the card and nvcc:
 8. Drives the probe path: the Hopper counterparts of the 14 Pallas cost
    probes under benchmarks/ (libgdf_tpu_torch.probes, P-1 .. P-14), each
    at its probe's shapes and the gathers and the one-hot compaction also at
-   the main path's scale (81,920 x 128 indices, 10.5M elements), with the
+   the main path's scale (81,920 x 128 indices, 10.5M elements), and the
+   bulk copy also at 1000 steps (5,003 rows written), with the
    launch counts reset just before and read just after; every P-n must
    launch. Each output is held to its plain version on the card, exactly,
    and to its probe's own check (every 64K block sorted and key[payload]
@@ -144,6 +156,7 @@ partial sums in another order than one table does).
 import ctypes
 import hashlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -255,6 +268,7 @@ CAP_PROBES = {"P-8": "p1", "P-9": "p2", "P-10": "p3", "P-11": "p4",
               "P-12": "p5", "P-13": "p6", "P-14": "p7"}
 GATHER_SCALE_ROWS = 81_920      # 10.5M indices: the gathers after a sort
 COMPACT_SCALE_TILES = 40_960    # 10.5M elements of one-hot compaction
+BULK_SCALE_STEPS = 1000         # P-11 at 2.56 MB read and written
 # H100 SXM data sheet, at 700 W: float32 outside the tensor cores (the
 # rate taken for 32-bit scalar work)
 SCALAR_OPS_PER_MS = 67e12 / 1e3
@@ -415,6 +429,17 @@ def _values(rng, n, dtype, dev):
     return torch.as_tensor(x, device=dev).to(dtype)
 
 
+def _flush_values(rng, n, dtype, dev):
+    """Zeros, +-denormals and +-1, 2 times finfo.tiny: once the denormals
+    are flushed, every partial sum is an exact multiple of finfo.tiny, in
+    any order of addition."""
+    d = 1e-40 if dtype == torch.float32 else 1e-310
+    t = torch.finfo(dtype).tiny
+    return torch.as_tensor(rng.choice(np.array(
+        [0.0, -0.0, d, -d, 2 * d, t, -t, 2 * t, -2 * t]), n),
+        device=dev).to(dtype)
+
+
 def phase_compact(rng, dev):
     n = N_FACT
     keep = torch.as_tensor(rng.random(n) < 0.45, device=dev)
@@ -515,6 +540,15 @@ def phase_scan(rng, dev):
                     else:
                         exact(got, want, what)
     check_look_back(rng, dev)
+    for dtype in (torch.float32, torch.float64):
+        for m in (n,) + EDGE_SIZES:
+            x = _flush_values(rng, m, dtype, dev)
+            for reverse in (False, True):
+                exact(kernels.scan("sum", x, reverse),
+                      kernels.scan_plain("sum", x, reverse),
+                      f"scan sum {dtype} n={m} reverse={reverse} flush")
+    print("scan flush: float32 / float64 sums of denormals and multiples of "
+          "finfo.tiny exact, forward and reverse", flush=True)
     timed = {}
     for dtype, m in ((torch.int32, n), (torch.int64, N_W),
                      (torch.float64, N_W)):
@@ -578,6 +612,16 @@ def phase_seg_scan(rng, dev):
                 else:
                     exact(got, want, what)
     check_seg_look_back(rng, dev)
+    for dtype in (torch.float32, torch.float64):
+        for m, density in [(n, 0.25), (n, 0.0)] + \
+                [(e, d) for e in EDGE_SIZES for d in (0.0, 0.03, 1.0)]:
+            x = _flush_values(rng, m, dtype, dev)
+            f = torch.as_tensor(rng.random(m) < density, device=dev)
+            exact(kernels.seg_scan("sum", f, x),
+                  kernels.seg_scan_plain("sum", f, x),
+                  f"seg_scan sum {dtype} n={m} density={density} flush")
+    print("seg_scan flush: float32 / float64 segmented sums of denormals and "
+          "multiples of finfo.tiny exact", flush=True)
     timed = {}
     for name, kind, dtype, m in (
             ("K3 float32 sum", "sum", torch.float32, n),
@@ -1329,7 +1373,7 @@ def drive(path, run, data, dev, card):
     return res, launches
 
 
-# -- the repaired faults (ROADMAP queue C, C3-C6) ----------------------------
+# -- the repaired faults (ROADMAP queue C, C3-C7) ----------------------------
 
 N_FAULTS = 1_000_000
 # the first NaN of C5's running min, just before and after H3's tile edges
@@ -1345,14 +1389,30 @@ def fault_values(rng, dtype, n):
                                 -1.5, 3.0, np.nan, np.inf], dtype), n)
 
 
+def sum_values(rng, dtype, n):
+    """C7's values for sums: zeros, +-denormals and small multiples of a
+    unit u = 1024 finfo.tiny. Once the denormals are flushed every sum is
+    an exact multiple of u, in any order of addition, and a mean of one is
+    no denormal, so the card and the CPU must agree exactly."""
+    d = 1e-40 if dtype == np.float32 else 1e-310
+    u = np.finfo(dtype).tiny * 1024
+    return rng.choice(np.array([0.0, -0.0, d, -d, 2 * d,
+                                np.finfo(dtype).smallest_subnormal, u, -u,
+                                3 * u], dtype), n)
+
+
 def fault_cases(seed=0):
     """[(name, run(device) -> tuple of Columns or tensors)] over
-    N_FAULTS-row inputs: C3 / C6 comparisons, div and floordiv of denormals
-    against the same dtype, the other float dtype and int64, both ways
-    round; C4 the identity hash of floats with inf, NaN and values past
-    2^32; C3 the groupby and window min / max of denormals (ROW running,
-    ROW over 10,000 rows, RANGE); C5 the float64 running min with its first
-    NaN at H3's tile edges."""
+    N_FAULTS-row inputs: C3 / C6 / C7 comparisons, div, floordiv, add, sub
+    and mul of denormals against the same dtype, the other float dtype and
+    int64, both ways round; C4 the identity hash of floats with inf, NaN
+    and values past 2^32; C3 the groupby and window min / max of denormals
+    (ROW running, ROW over 10,000 rows, RANGE); C7 the sums of denormals
+    (the three sum reductions, prefix sums, groupby sum / count / avg and
+    avg alone, the window sum, avg, var and count in the three frames, the
+    exact quantiles) and the window var / stddev pairs (held by
+    same_stddev); C5 the float64 running min with its first NaN at H3's
+    tile edges."""
     rng = np.random.default_rng(seed)
     n = N_FAULTS
     out = []
@@ -1366,8 +1426,8 @@ def fault_cases(seed=0):
                               for v in (a, b))
                     return tuple(ops.binary_op(ca, cb, op) for op in
                                  ("eq", "ne", "lt", "le", "gt", "ge", "div",
-                                  "floordiv"))
-                out.append((f"C3/C6 {a.dtype} op {b.dtype}", run))
+                                  "floordiv", "add", "sub", "mul"))
+                out.append((f"C3/C6/C7 {a.dtype} op {b.dtype}", run))
         h = np.concatenate([[-1.0, -2.5, 5e9, np.inf, -np.inf, np.nan,
                              2.0 ** 32, 4294967040.0],
                             rng.standard_normal(n) * 3e9]).astype(dt)
@@ -1393,6 +1453,37 @@ def fault_cases(seed=0):
                            dict(preceding=n // 4, frame="range"))))
         out.append((f"C3 groupby and window min / max {dt.__name__}",
                     windows))
+        scols = {"p": cols["p"], "o": cols["o"],
+                 "v": sum_values(rng, dt, n)}
+
+        def sums(dev, cols=scols, nulls=nulls):
+            W = Table.from_dict(cols, nulls, device=dev)
+            v = W["v"]
+            g = ops.groupby(W, ["p"], [("v", "sum", "s"), ("v", "count", "c"),
+                                       ("v", "avg", "a")]).compact()
+            g1 = ops.groupby(W, ["p"], [("v", "avg", "a")]).compact()
+            x = Column.from_array(cols["v"], device=dev)
+            return (*[ops.reduce(v, op) for op in
+                      ("sum", "product", "sum_squared")],
+                    ops.prefixsum(x), ops.prefixsum(x, False),
+                    *g.columns, *g1.columns,
+                    *[ops.quantile_exact(v, q, m) for q in (0.3, 0.5)
+                      for m in QMETHODS], *(
+                        ops.window_function(W, "v", red, partition_by=["p"],
+                                            order_by=["o"], **kw)
+                        for red in ("sum", "avg", "var", "count")
+                        for kw in ({}, dict(preceding=10_000),
+                                   dict(preceding=n // 4, frame="range"))))
+        out.append((f"C7 sums of denormals {dt.__name__}", sums))
+
+        def stddevs(dev, cols=scols, nulls=nulls):
+            W = Table.from_dict(cols, nulls, device=dev)
+            return tuple(ops.window_function(W, "v", red, partition_by=["p"],
+                                             order_by=["o"], **kw)
+                         for kw in ({}, dict(preceding=10_000),
+                                    dict(preceding=n // 4, frame="range"))
+                         for red in ("var", "stddev"))
+        out.append((f"C7 window stddev of denormals {dt.__name__}", stddevs))
     for at in FAULT_NAN_AT:
         v = rng.standard_normal(n)
         v[at] = np.nan
@@ -1432,24 +1523,105 @@ def check_fault_examples(dev):
                          "v": np.array([3, np.nan, 1, 2, -1])}, device=dev)
     same(ops.window_function(W, "v", "min", order_by=["o"]),
          [3] + [np.nan] * 4, "C5 running min")
+    check_c7_examples(dev, col, same)
+
+
+def check_c7_examples(dev, col, same):
+    """C7: a denormal is zero where it enters arithmetic, a sum or a
+    widening; C8: a bitwise op on floats raises TypeError."""
+    f32, f64 = np.float32, np.float64
+    for a, b, op, want in (
+            (col([1e-40], f32), col([0.0], f64), "add", [0.0]),
+            (col([1e-45], f32), col([1e300], f64), "mul", [0.0]),
+            (col([1e-40], f32), col([1e30], f32), "mul", [0.0]),
+            (col([1e308], f64), col([5e-324], f64), "mul", [0.0]),
+            (col([1e-40], f32), col([1.2e-38], f32), "add", [1.2e-38])):
+        same(ops.binary_op(a, b, op), want,
+             f"C7 {a.data.dtype} {op} {b.data.dtype}")
+    same(ops.compare_scalar(ops.binary_op(col([1e-40], f32),
+                                          col([1e30], f32), "mul"),
+                            0.0, "gt"), [0], "C7 1e-40 * 1e30 > 0")
+    same(ops.reduce(col([1e-40, 1e30], f32), "product"), 0.0,
+         "C7 product")
+    for d, dt in ((1e-40, f32), (1e-310, f64)):
+        c = col(np.full(300, d), dt)
+        same(ops.reduce(c, "sum"), 0.0, f"C7 sum of 300 {d}")
+        same(ops.prefixsum(c).data[-1:], [0.0], f"C7 prefixsum of 300 {d}")
+        T = Table.from_dict({"k": np.zeros(300, np.int32),
+                             "v": np.full(300, d, dt)}, device=dev)
+        same(ops.groupby(T, ["k"], [("v", "sum", "s")])["s"].data[:1],
+             [0.0], f"C7 groupby sum of 300 {d}")
+    T = Table.from_dict({"k": np.zeros(2, np.int32),
+                         "v": np.full(2, 1e-40, f32)}, device=dev)
+    same(ops.groupby(T, ["k"], [("v", "avg", "a")])["a"].data[:1], [0.0],
+         "C7 groupby avg")
+    W = Table.from_dict({"p": np.zeros(4, np.int32),
+                         "o": np.arange(4, dtype=np.int32),
+                         "v": np.array([1e-40, 1e-40, -1e-40, 1e-40], f32)},
+                        device=dev)
+    for red in ("sum", "avg", "var"):
+        for kw in ({}, dict(preceding=3), dict(preceding=30, frame="range")):
+            same(ops.window_function(W, "v", red, partition_by=["p"],
+                                     order_by=["o"], **kw), [0.0] * 4,
+                 f"C7 window {red} {kw}")
+    q = col([1e-40, 2e-40, 3e-40, 5e-40], f32)
+    for m in QMETHODS:
+        same(ops.quantile_exact(q, 0.5, m), 0.0, f"C7 quantile {m}")
+    for op in ("bitwise_and", "bitwise_or", "bitwise_xor"):
+        try:
+            ops.binary_op(col([1.0], f32), col([1], np.int32), op)
+        except TypeError:
+            continue
+        fail(f"C8 {op} of a float column did not raise TypeError")
 
 
 def check_faults(dev, card):
-    """C3-C6 on the card: the examples give the reference's answers, and
+    """C3-C8 on the card: the examples give the reference's answers, and
     every fault case equals the port's CPU run exactly (NaN equals NaN)."""
     t0 = time.perf_counter()
     check_fault_examples(dev)
     cases = fault_cases()
+    off = 0
     for name, run in cases:
-        for i, (g, c) in enumerate(zip(run(dev), run(torch.device("cpu")))):
+        got, cpu = run(dev), run(torch.device("cpu"))
+        if "stddev" in name:
+            off += same_stddev(got, cpu, name)
+            continue
+        for i, (g, c) in enumerate(zip(got, cpu)):
             if isinstance(g, Column):
                 same_column(g, c, f"{name} [{i}]")
             else:
                 exact(g.cpu(), c, f"{name} [{i}]")
     torch.cuda.synchronize()
-    print(f"faults C3-C6: the examples give the reference's answers and "
+    print(f"faults C3-C7: the examples give the reference's answers (C8's "
+          f"bitwise ops on floats raise TypeError) and "
           f"{len(cases)} cases over {N_FAULTS} rows equal the CPU run "
-          f"({card}; phase {time.perf_counter() - t0:.1f} s)", flush=True)
+          f"(stddev: numpy's sqrt of the CPU's var exactly, the CPU's own "
+          f"1 ulp off it on {off} rows) ({card}; phase "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def same_stddev(got, cpu, what):
+    """(var, stddev) Column pairs of the card against the CPU run's: var
+    exactly; the card's stddev exactly numpy's sqrt of the CPU's var (IEEE
+    sqrt, correctly rounded); the CPU's stddev within 1 ulp of that, since
+    torch's CPU float64 sqrt is not always correctly rounded. Returns the
+    valid rows where the CPU's stddev is off numpy's."""
+    off = 0
+    for i in range(0, len(got), 2):
+        (gv, gs), (cv, cs) = got[i:i + 2], cpu[i:i + 2]
+        w = f"{what} [{i // 2}]"
+        same_column(gv, cv, f"{w} var")
+        with np.errstate(invalid="ignore"):
+            root = torch.as_tensor(np.sqrt(cv.data.numpy()))
+        ok = cv.valid if cv.valid is not None else torch.ones_like(
+            root, dtype=torch.bool)
+        exact(torch.where(ok, gs.data.cpu(), 0.0), torch.where(ok, root, 0.0),
+              f"{w} stddev against numpy's sqrt of the CPU's var")
+        ulp = torch.nextafter(root, torch.full_like(root, math.inf)) - root
+        same_column(gs, cs, f"{w} stddev", bound=torch.where(ok, ulp, 0.0))
+        off += int((ok & (cs.data != root)).sum())
+    return off
 
 
 # -- the probe path ---------------------------------------------------------
@@ -1559,12 +1731,15 @@ def make_probe_cases(dev, seed=0):
                 torch.take_along_dim(px, i64, 1)
         elif pn == "P-13":
             lib = lambda px=args[0]: px.sum(dtype=torch.int32)
-        out_bytes = {"P-11": caps.bulk_rows(3) * 128 * 4, "P-13": 4,
-                     "P-14": 128 * 4}.get(pn, nbytes(args[0]))
+        out_bytes = {"P-13": 4, "P-14": 128 * 4}.get(pn, nbytes(args[0]))
+        # P-11 reads the rows it writes, each once (bulk_sources); P-8
+        # reads only x's first STORE_ROWS rows (x[0, 0] among them)
+        moved = {"P-8": caps.STORE_ROWS * 128 * 4 + out_bytes,
+                 "P-11": 2 * caps.bulk_rows(3) * 128 * 4}.get(
+            pn, nbytes(*args) + out_bytes)
         cases.append(probe_case(
             pn, lambda kernel=kernel, args=args: kernel(*args),
-            lambda plain=plain, args=args: plain(*args),
-            nbytes(*args) + out_bytes,
+            lambda plain=plain, args=args: plain(*args), moved,
             f"probe_pallas_caps.py {name}: " + ", ".join(
                 f"{a.dtype} {tuple(a.shape)}" for a in args),
             library=lib, rows=rows,
@@ -1578,6 +1753,18 @@ def make_probe_cases(dev, seed=0):
         lambda: caps.cap_onehot_compact_plain(cx, ck), 3 * nbytes(cx),
         f"{COMPACT_SCALE_TILES} tiles of 256 int32, half kept",
         scale=True))
+    bx = t(rng.integers(-2 ** 31, 2 ** 31, (8 * BULK_SCALE_STEPS, 128))
+           .astype(np.int32))
+    rows = caps.bulk_rows(BULK_SCALE_STEPS)
+    want = (bx[torch.as_tensor(caps.bulk_sources(BULK_SCALE_STEPS),
+                               device=dev)].long() + 1000).to(torch.int32)
+    cases.append(probe_case(
+        "P-11", lambda: caps.cap_bulk_copy(bx),
+        lambda: caps.cap_bulk_copy_plain(bx), 2 * rows * 128 * 4,
+        f"{BULK_SCALE_STEPS} steps, int32 {tuple(bx.shape)}, {rows} rows "
+        f"written", scale=True, rows=rows,
+        check=lambda out, want=want, rows=rows: torch.equal(out[:rows],
+                                                            want)))
     return cases
 
 

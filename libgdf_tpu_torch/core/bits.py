@@ -43,13 +43,26 @@ def flush_float_keys(data: torch.Tensor) -> torch.Tensor:
 def flush_denormals(data: torch.Tensor) -> torch.Tensor:
     """A denormal is zero, as on the TPU: every |x| < finfo(dtype).tiny of
     a float tensor becomes a zero of its own sign; other dtypes pass
-    through. XLA flushes the denormal inputs of comparisons, casts,
-    min / max, floor-division and sqrt / floor / ceil / log, on the TPU
-    and on the CPU alike; torch does not, on the CPU or the card."""
+    through. XLA reads a denormal as zero wherever it enters arithmetic,
+    a sum, a comparison, min / max or a cast (a widening included), on
+    the TPU and on the CPU alike; torch does not, on the CPU or the card.
+    The port applies this to each float input in its own dtype, before
+    any promotion or widening, and leaves results unflushed. One call is
+    three elementwise passes (abs, compare, multiply by the 0 / 1 mask,
+    which keeps the sign of a zero, inf and NaN); the scans fold it into
+    their kernel's load instead (`ops/kernels/scan.py`)."""
     if not data.is_floating_point():
         return data
-    return torch.where(data.abs() < torch.finfo(data.dtype).tiny, data * 0,
-                       data)
+    return data * (data.abs() >= torch.finfo(data.dtype).tiny)
+
+
+def to_float64(data: torch.Tensor) -> torch.Tensor:
+    """`data` as float64, as XLA converts it: a narrower float is flushed
+    in its own dtype first (a float32 denormal is a normal float64, which
+    no later flush would catch). float64 passes through as it is."""
+    if data.is_floating_point() and data.dtype != torch.float64:
+        data = flush_denormals(data)
+    return data.to(torch.float64)
 
 
 _MASK = {1: 0xFF, 2: 0xFFFF, 4: 0xFFFFFFFF}

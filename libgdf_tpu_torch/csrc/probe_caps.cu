@@ -48,11 +48,27 @@
 // overlap. 16-byte stores, a warp writing whole rows; 4-byte accesses
 // where x or out is not 16-byte aligned. One barrier a call.
 //
-// P-11 design: one CUDA block loops over the steps (the TPU's sequential
-// grid) with the row offset carried in a register; each step's staged rows
-// go from shared to device memory with one cp.async.bulk (a 512-byte row
-// keeps address and size 16-byte aligned), completed before the next step
-// so that a later step's rows overwrite an earlier one's, as on the TPU.
+// P-8 design: the probe zero-fills a VMEM scratch, stores 8 rows into it
+// at a run-time offset and copies its first rows out. The function is
+// closed: out row r is x row r - start for start <= r < start + 8 and zero
+// otherwise, with start = x[0, 0] + 3 (int32 wrap). One block of 256
+// threads: thread t loads x[0, 0] and quad t of x's first 8 rows (the only
+// rows the probe reads) in one round, stores its quad at out row start +
+// t / 32 if that row is below `rows`, and stores zeros to the output quads
+// t + 256 k that lie outside the 8-row window. One round trip, no shared
+// memory, no barrier, 16-byte stores (4-byte ones where x or out is not
+// 16-byte aligned).
+//
+// P-11 design: the probe's sequential grid carries a row offset and lets a
+// later step's rows overwrite an earlier one's; that is a TPU idiom for a
+// closed form. Out row r < bulk_rows(steps) = 5 (steps - 1) + 8 is x row
+// 8b + (r - 5b) = 3b + r, plus 1000, where b = min(r / 5, steps - 1) is
+// the last step that writes it; later rows are not written. A grid of
+// 4-warp blocks, each warp owning 4 whole 512-byte output rows (16 bytes
+// a lane): all 4 loads issued before any store, no barrier, no shared
+// memory, no bulk copy; 4-byte accesses where x or out is not 16-byte
+// aligned. It is bound by its launch at the probe's 3 steps and by device
+// memory from about a thousand steps on.
 //
 // P-13 design: the TPU carries the sum from one 8-row grid step to the
 // next in SMEM; unsigned addition wraps and is associative, so the carry
@@ -78,25 +94,6 @@ constexpr int kStepAdvance = 5;                 // p4's offset per step
 constexpr int kMaxDevices = 16;
 constexpr int kCompactPerLane = kCompactTile / 32;   // 8 elements a lane
 
-__global__ void __launch_bounds__(kThreads)
-cap_dyn_store(const int* __restrict__ x, int* __restrict__ out, int rows) {
-  __shared__ int s[kScratchRows * kLanes];
-  for (int e = threadIdx.x; e < kScratchRows * kLanes; e += kThreads) {
-    s[e] = 0;
-  }
-  __syncthreads();
-  // the wrapper checks that rows [start, start + 8) fit; the guard keeps
-  // the store inside the scratch all the same
-  const int start = (int)((unsigned)x[0] + 3u);
-  if (start >= 0 && start <= kScratchRows - kStoreRows) {
-    for (int e = threadIdx.x; e < kStoreRows * kLanes; e += kThreads) {
-      s[start * kLanes + e] = x[e];
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < rows * kLanes; e += kThreads) out[e] = s[e];
-}
-
 constexpr int kCumRowsPerWarp = 8;                      // P-9
 constexpr int kCumWarps = kCumRows / kCumRowsPerWarp;
 constexpr int kCarryLoads = 4;                          // P-13, a thread
@@ -120,6 +117,33 @@ __device__ __forceinline__ void store4(int* p, uint4 v) {
 
 __device__ __forceinline__ uint4 add4(uint4 a, uint4 b) {
   return make_uint4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// P-8: 256 threads, thread t holds quad t of x's first 8 rows.
+constexpr int kStoreThreads = kStoreRows * kQuads;
+constexpr int kStoreQuads = kScratchRows * kQuads;      // of out, at most
+
+template <bool kVec>
+__global__ void __launch_bounds__(kStoreThreads)
+cap_dyn_store(const int* __restrict__ x, int* __restrict__ out, int rows) {
+  const int t = threadIdx.x;
+  const int x00 = x[0];
+  const uint4 v = load4<kVec>(x + 4 * t);
+  // the wrapper checks that rows [start, start + 8) fit; an offset that
+  // does not leaves the window empty (all zeros), never a store outside
+  const int start = (int)((unsigned)x00 + 3u);
+  const bool fits = start >= 0 && start <= kScratchRows - kStoreRows;
+  const int lo = fits ? start * kQuads : 0;               // window, in quads
+  const int hi = fits ? lo + kStoreThreads : 0;
+  const int quads = rows * kQuads;
+  if (fits && lo + t < quads) store4<kVec>(out + 4 * (lo + t), v);
+#pragma unroll
+  for (int k = 0; k < kStoreQuads / kStoreThreads; ++k) {
+    const int q = t + k * kStoreThreads;
+    if (q < quads && (q < lo || q >= hi)) {
+      store4<kVec>(out + 4 * q, make_uint4(0, 0, 0, 0));
+    }
+  }
 }
 
 // One block of kCumWarps warps; warp b holds rows [8b, 8b + 8).
@@ -229,32 +253,34 @@ cap_onehot_compact(const int* __restrict__ x, const int* __restrict__ keep,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-cap_bulk_copy(const int* __restrict__ x, int* __restrict__ out, int steps) {
-  __shared__ __align__(128) int stage[kStepRows * kLanes];
-  int off = 0;                                  // carried across the steps
-  for (int b = 0; b < steps; ++b) {
-    for (int e = threadIdx.x; e < kStepRows * kLanes; e += kThreads) {
-      stage[e] = (int)((unsigned)x[b * kStepRows * kLanes + e] + 1000u);
+// P-11: 4-warp blocks, kBulkRowsPerWarp whole output rows a warp.
+constexpr int kBulkWarps = 4;
+constexpr int kBulkRowsPerWarp = 4;
+constexpr int kBulkRowsPerBlock = kBulkWarps * kBulkRowsPerWarp;
+
+template <bool kVec>
+__global__ void __launch_bounds__(kBulkWarps * 32)
+cap_bulk_copy(const int* __restrict__ x, int* __restrict__ out, int steps,
+              int out_rows) {
+  const int lane = threadIdx.x & 31;
+  const int first = blockIdx.x * kBulkRowsPerBlock +
+                    (threadIdx.x >> 5) * kBulkRowsPerWarp;
+  uint4 v[kBulkRowsPerWarp];
+#pragma unroll
+  for (int k = 0; k < kBulkRowsPerWarp; ++k) {
+    const int r = first + k;
+    const int b = min(r / kStepAdvance, steps - 1);   // the last step at r
+    const long long src = (long long)(kStepRows - kStepAdvance) * b + r;
+    v[k] = r < out_rows ? load4<kVec>(x + src * kLanes + 4 * lane)
+                        : make_uint4(0, 0, 0, 0);
+  }
+  const uint4 plus = make_uint4(1000u, 1000u, 1000u, 1000u);
+#pragma unroll
+  for (int k = 0; k < kBulkRowsPerWarp; ++k) {
+    const int r = first + k;
+    if (r < out_rows) {
+      store4<kVec>(out + (long long)r * kLanes + 4 * lane, add4(v[k], plus));
     }
-    // the bulk copy reads shared memory through the async proxy
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const unsigned src =
-          static_cast<unsigned>(__cvta_generic_to_shared(stage));
-      asm volatile(
-          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-          :: "l"(reinterpret_cast<unsigned long long>(
-                 out + (long long)off * kLanes)),
-             "r"(src),
-             "r"((unsigned)(kStepRows * kLanes * sizeof(int)))
-          : "memory");
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-    }
-    __syncthreads();                            // stage is free again
-    off += kStepAdvance;
   }
 }
 
@@ -316,13 +342,16 @@ bool aligned16(const void* p) {
 
 extern "C" {
 
-// x int32 (rows, 128), 8 <= rows <= 32; out (rows, 128).
+// x int32 (rows, 128), 8 <= rows <= 32; out (rows, 128). Any 4-byte
+// alignment.
 int gdf_probe_cap_dyn_store(const void* x, void* out, int rows,
                             void* stream) {
   if (rows < kStoreRows || rows > kScratchRows) {
     return (int)cudaErrorInvalidValue;
   }
-  cap_dyn_store<<<1, kThreads, 0, as_stream(stream)>>>(
+  auto* kernel = aligned16(x) && aligned16(out) ? &cap_dyn_store<true>
+                                                : &cap_dyn_store<false>;
+  kernel<<<1, kStoreThreads, 0, as_stream(stream)>>>(
       static_cast<const int*>(x), static_cast<int*>(out), rows);
   GDF_LAUNCH_CHECK();
   return 0;
@@ -378,15 +407,19 @@ int gdf_probe_cap_onehot_compact(const void* x, const void* keep, void* out,
   return 0;
 }
 
-// x, out int32 (8 * steps, 128); out 16-byte aligned. Rows past
+// x, out int32 (8 * steps, 128), any 4-byte alignment. Rows past
 // 5 (steps - 1) + 8 are not written.
 int gdf_probe_cap_bulk_copy(const void* x, void* out, int steps,
                             void* stream) {
-  if (steps < 1 || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
+  if (steps < 1 || steps > (1 << 20) / kStepRows) {
     return (int)cudaErrorInvalidValue;
   }
-  cap_bulk_copy<<<1, kThreads, 0, as_stream(stream)>>>(
-      static_cast<const int*>(x), static_cast<int*>(out), steps);
+  const int out_rows = kStepAdvance * (steps - 1) + kStepRows;
+  auto* kernel = aligned16(x) && aligned16(out) ? &cap_bulk_copy<true>
+                                                : &cap_bulk_copy<false>;
+  kernel<<<(unsigned)((out_rows + kBulkRowsPerBlock - 1) / kBulkRowsPerBlock),
+           kBulkWarps * 32, 0, as_stream(stream)>>>(
+      static_cast<const int*>(x), static_cast<int*>(out), steps, out_rows);
   GDF_LAUNCH_CHECK();
   return 0;
 }

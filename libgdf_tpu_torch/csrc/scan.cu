@@ -61,9 +61,18 @@
 //   copy of the tile in registers.
 // Misaligned views (values, output or flags) and the ragged last tile take
 // a scalar path through the same registers.
+//
+// Denormals (float and double sums). XLA reads a denormal float as zero
+// wherever it enters a sum; CUDA adds it. So a float sum flushes every
+// element where it is loaded, |v| < the type's smallest normal becoming
+// a zero of v's sign: one compare and one select in registers, so the
+// scan stays bound by memory, where a separate flush pass over the input
+// would cost about as much as the scan. Results are not flushed.
 #include "lookback.cuh"
 
+#include <float.h>
 #include <math.h>
+#include <type_traits>
 
 namespace {
 
@@ -90,6 +99,17 @@ template <> struct Limits<double> {
   static __device__ double lowest() { return -INFINITY; }
   static __device__ double highest() { return INFINITY; }
 };
+
+// The element as a float sum reads it (FTZ): a denormal is a signed zero.
+template <bool FTZ, typename T> __device__ __forceinline__ T load_value(T v) {
+  return v;
+}
+template <> __device__ __forceinline__ float load_value<true, float>(float v) {
+  return fabsf(v) < FLT_MIN ? copysignf(0.0f, v) : v;
+}
+template <> __device__ __forceinline__ double load_value<true, double>(double v) {
+  return fabs(v) < DBL_MIN ? copysign(0.0, v) : v;
+}
 
 template <typename T> __device__ __forceinline__ bool is_nan(T) { return false; }
 template <> __device__ __forceinline__ bool is_nan<float>(float v) { return v != v; }
@@ -147,13 +167,15 @@ template <typename T> struct alignas(16) Vec {
 // Logical element i of the scan is physical element i, or n-1-i for a
 // reverse scan over a logical array of nl = n rounded up to whole vectors
 // whose first nl-n elements are padding. Valid iff nl-n <= i < nl. With
-// FLAGS, flags[i] != 0 starts a segment at i.
+// FLAGS, flags[i] != 0 starts a segment at i. A float sum reads denormal
+// elements as zeros.
 template <typename T, int K, bool REV, bool FLAGS>
 __global__ void __launch_bounds__(kScanThreads)
 scan_lookback(const T* __restrict__ in, const unsigned char* __restrict__ flags,
               T* __restrict__ out, long long n, long long nl, bool aligned,
               Descs d) {
   static_assert(!(REV && FLAGS), "segmented scans run forward only");
+  constexpr bool FTZ = K == kSum && std::is_floating_point<T>::value;
   using G = Geom<T>;
   using O = Op<T, K>;
   constexpr int E = G::kVecElems;
@@ -179,7 +201,9 @@ scan_lookback(const T* __restrict__ in, const unsigned char* __restrict__ flags,
       const Vec<T> v = *reinterpret_cast<const Vec<T>*>(
           in + (REV ? nl - first - E : first));
 #pragma unroll
-      for (int e = 0; e < E; ++e) x[j][e] = v.v[REV ? E - 1 - e : e];
+      for (int e = 0; e < E; ++e) {
+        x[j][e] = load_value<FTZ>(v.v[REV ? E - 1 - e : e]);
+      }
       if constexpr (FLAGS) {
         unsigned w;
         if constexpr (E == 4) {
@@ -194,7 +218,7 @@ scan_lookback(const T* __restrict__ in, const unsigned char* __restrict__ flags,
       for (int e = 0; e < E; ++e) {
         const long long i = first + e;
         const bool ok = i >= pad && i < nl;
-        x[j][e] = ok ? in[REV ? nl - 1 - i : i] : O::ident();
+        x[j][e] = ok ? load_value<FTZ>(in[REV ? nl - 1 - i : i]) : O::ident();
         if constexpr (FLAGS) {
           if (ok && flags[i]) fl |= 1u << (j * E + e);
         }

@@ -18,14 +18,18 @@ operator would answer otherwise:
     float32 (torch divides int64 in float32);
   - a float -> integer cast saturates at the target's range and maps NaN
     to 0 (XLA's convert; torch's is undefined out of range);
-  - a denormal float is zero (`core/bits.py::flush_denormals`) on the
-    inputs of the comparisons, float <-> float casts (and their outputs),
-    division, floor-division and sqrt / floor / ceil / log, so row sets
-    and integral results do not depend on it. Each input is flushed in
-    its own dtype, before any promotion: a float32 denormal widened to
-    float64 is a normal number. add / sub / mul keep torch's denormals,
-    and no result is flushed: a denormal result against a zero changes
-    no row set.
+  - a denormal float is zero (`core/bits.py::flush_denormals`) wherever
+    it enters arithmetic or a widening, as XLA reads it: on the inputs of
+    add / sub / mul / div / floor-division, the comparisons, float <->
+    float casts (and their outputs) and sqrt / floor / ceil / log. Each
+    input is flushed in its own dtype, before any promotion: a float32
+    denormal widened to float64 is a normal number, and one scaled or
+    accumulated becomes one too, so a later flush would not catch it
+    (float32 1e-40 * 1e30 is 1e-10, not 0). Results are not flushed: a
+    denormal result is read as zero by the next op it enters, and only a
+    user who reads it directly sees it (float32 1.5e-38 - 1.4e-38 is
+    1e-39 here, 0.0 in the JAX package);
+  - a bitwise op on a float column raises TypeError, as jnp's do.
 """
 from __future__ import annotations
 
@@ -175,11 +179,26 @@ def _div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a / b
 
 
+def _flushed(fn):
+    """fn over its inputs, each flushed in its own dtype first."""
+    return lambda a, b: fn(flush_denormals(a), flush_denormals(b))
+
+
+def _bitwise(fn):
+    def op(a, b):
+        if a.is_floating_point() or b.is_floating_point():
+            raise TypeError(f"{fn.__name__} is defined for integer and "
+                            f"bool columns, not {a.dtype} and {b.dtype}")
+        return fn(a, b)
+    return op
+
+
 _ARITH = {
-    "add": torch.add, "sub": torch.sub, "mul": torch.mul,
-    "div": _div, "floordiv": _floordiv,
-    "bitwise_and": torch.bitwise_and, "bitwise_or": torch.bitwise_or,
-    "bitwise_xor": torch.bitwise_xor,
+    "add": _flushed(torch.add), "sub": _flushed(torch.sub),
+    "mul": _flushed(torch.mul), "div": _div, "floordiv": _floordiv,
+    "bitwise_and": _bitwise(torch.bitwise_and),
+    "bitwise_or": _bitwise(torch.bitwise_or),
+    "bitwise_xor": _bitwise(torch.bitwise_xor),
 }
 _CMP = {
     "gt": torch.gt, "ge": torch.ge, "lt": torch.lt, "le": torch.le,

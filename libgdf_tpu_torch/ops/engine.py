@@ -7,7 +7,8 @@ sorts keys and gathers payloads.
 
 Scans dispatch on the tensor's device inside the kernel wrappers
 (ops/kernels): the Hopper kernels for CUDA tensors, their plain PyTorch
-versions for CPU tensors.
+versions for CPU tensors. Float sums read a denormal input as zero, as
+XLA's do: H2 and H3 flush each element as they load it.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Sequence
 
 import torch
 
+from ..core.bits import flush_denormals
 from .kernels import scan, seg_scan
 
 
@@ -59,13 +61,14 @@ def cumsum(x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
     """Inclusive prefix sum in `dtype` (default: x's dtype). int32, int64,
     float32 and float64 run at their own H2 instance (int64 and float64
     replace the TPU's K4a and K5a); float16 runs at float32 and int8 and
-    int16 at int32, cast back."""
-    if dtype is not None:
-        x = x.to(dtype)
+    int16 at int32, cast back. A denormal float input is zero, also one
+    widened first (flushed in its own dtype before the widening)."""
+    if dtype is not None and dtype != x.dtype:
+        x = flush_denormals(x).to(dtype)
     via = _SUM_VIA.get(x.dtype)
     if via is None:
         return scan("sum", x)
-    return scan("sum", x.to(via)).to(x.dtype)
+    return scan("sum", flush_denormals(x).to(via)).to(x.dtype)
 
 
 def cummax(x: torch.Tensor) -> torch.Tensor:
@@ -79,6 +82,8 @@ def cummin(x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
 def seg_scan_sum(vals: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     """Inclusive segmented sum; `starts` marks segment heads. The value at
     each segment's last row is the segment total.
+
+    A denormal float value is zero (folded into H3's load).
 
     ≅ thrust::reduce_by_key's sum path (sqls_rtti_comp.hpp:496-505)."""
     return seg_scan("sum", starts, vals)

@@ -15,7 +15,12 @@ sqls_rtti_comp.hpp:400-660), with the same algorithm:
 Output rows come sorted by key. Null semantics are the JAX package's
 (pandas-like): `dropna=True` drops null-key rows, `dropna=False` makes each
 null-key row a group of its own (NULL != NULL); aggregates skip null
-values; COUNT counts the non-null values of its column.
+values; COUNT counts the non-null values of its column. A denormal float
+value is zero, as XLA reads it, in every aggregate: `sum` flushes inside
+H3's load, `avg` flushes a float32 column before widening it to float64
+(a float32 denormal is normal in float64), and float32 `min` / `max`
+flush before their scans (float64 ones order through their encodings,
+which read a denormal as zero).
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from typing import Sequence
 import torch
 
 from ..core.bitmask import mask_or
-from ..core.bits import flush_denormals, flush_float_keys
+from ..core.bits import flush_denormals, flush_float_keys, to_float64
 from ..core.column import Column
 from ..core.dtypes import DtypeInfo, GDFDtype, dtype_from_numpy
 from ..core.errors import GDFStatus, require
@@ -204,7 +209,7 @@ def _groupby_impl(table: Table, key_names, aggs, dropna: bool) -> Table:
     by_name = {c.name: c for c in cols if c is not None}
     for pos, (out_name, s_name, c_name) in deferred_avg.items():
         scol, ccol = by_name[s_name], by_name[c_name]
-        data = (scol.data.to(torch.float64)
+        data = (flush_denormals(scol.data).to(torch.float64)
                 / ccol.data.clamp(min=1).to(torch.float64))
         valid = group_live & (ccol.data > 0)
         if scol.valid is not None:
@@ -229,7 +234,7 @@ def _scan_agg(vals, avalid, starts, op, group_live, out_name):
 
     if op == "avg":
         # ≅ multi_pass_avg (groupby.cuh:308-419): float64 sum and count.
-        fvals = vals.to(torch.float64)
+        fvals = to_float64(vals)            # float64 flushes inside H3
         if avalid is not None:
             fvals = torch.where(avalid, fvals, 0.0)
             ones = avalid.to(torch.int32)
@@ -251,7 +256,7 @@ def _scan_agg(vals, avalid, starts, op, group_live, out_name):
 
     if op != "sum" and vals.dtype != torch.float64:
         # a denormal is zero (float64 min / max flush through their int64
-        # encodings, engine._seg_select)
+        # encodings, engine._seg_select; a sum flushes inside H3)
         vals = flush_denormals(vals)
     if avalid is not None:
         vals = torch.where(avalid, vals, _agg_identity(op, vals.dtype))

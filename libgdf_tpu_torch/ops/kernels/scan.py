@@ -12,6 +12,10 @@ raises.
                               flagged value, and positions before any flag
                               keep their own value.
 
+A float sum reads a denormal input as zero, as XLA's does
+(core/bits.py::flush_denormals): the kernel flushes each element as it
+loads it, the plain version flushes the input and then scans.
+
 Both are one pass with decoupled look-back: one memset of a scratch buffer
 (the tile counter and descriptors) and one launch.
 
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core.bits import flush_denormals
 from . import _lib
 
 _DTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
@@ -33,13 +38,14 @@ _OPS = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
 
 
 def scan_plain(kind: str, x: torch.Tensor, reverse: bool = False):
-    """Plain version of `scan`: torch.cumsum / cummax / cummin."""
+    """Plain version of `scan`: torch.cumsum (of the flushed input) /
+    cummax / cummin."""
     if x.shape[0] == 0:
         return x.clone()
     if reverse:
         x = torch.flip(x, [0])
     if kind == "sum":
-        out = torch.cumsum(x, 0, dtype=x.dtype)
+        out = torch.cumsum(flush_denormals(x), 0, dtype=x.dtype)
     elif kind == "max":
         out = torch.cummax(x, 0).values
     else:
@@ -50,9 +56,10 @@ def scan_plain(kind: str, x: torch.Tensor, reverse: bool = False):
 def seg_scan_plain(kind: str, flags: torch.Tensor, vals: torch.Tensor):
     """Plain version of `seg_scan`: a log-step doubling scan with the pair
     combine (fa, va) + (fb, vb) = (fa | fb, fb ? vb : op(va, vb))
-    (libgdf_tpu/ops/engine.py:243-251, and :295-300 for `carry`)."""
+    (libgdf_tpu/ops/engine.py:243-251, and :295-300 for `carry`); a sum
+    reads the flushed values."""
     f = flags.to(torch.bool)
-    v = vals
+    v = flush_denormals(vals) if kind == "sum" else vals
     n = v.shape[0]
     s = 1
     while s < n:

@@ -4,6 +4,11 @@ Counterpart of `libgdf_tpu/ops/quantiles.py` (≅ gdf_quantile_exact,
 libgdf/src/quantiles.cu:83-244, include/quantiles.hpp:32-158, and
 gdf_quantile_aprrox, functions.h:782). One stable sort of (NULL flag,
 value) puts NULL rows last; the quantile is read at q * (n_valid - 1).
+A denormal is zero where XLA reads it so: a float32 value is flushed
+before it is widened to float64 (float32 [1e-40, 2e-40, 3e-40, 5e-40]
+has median 0.0, not 2.5e-40), and `linear` / `midpoint` flush the values
+they combine; `lower` / `higher` / `nearest` of a float64 column return
+the value as stored, as the reference's gather does.
 Results are 0-d tensors on the column's device; nothing here syncs. A
 quantile of an empty column raises GDFError.
 """
@@ -11,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.bits import flush_denormals, to_float64
 from ..core.column import Column
 from ..core.errors import GDFStatus, require
 from .engine import multi_sort
@@ -41,11 +47,13 @@ def quantile_exact(col: Column, q: float, method: str = "linear"):
     svals, n = _sorted_valid(col)
     pos = _position(q, n)
     if method == "nearest":
-        return svals[torch.round(pos).to(torch.int64)].to(torch.float64)
+        return to_float64(svals[torch.round(pos).to(torch.int64)])
     lo = torch.floor(pos).to(torch.int64)
     hi = torch.ceil(pos).to(torch.int64)
-    vlo = svals[lo].to(torch.float64)
-    vhi = svals[hi].to(torch.float64)
+    vlo = to_float64(svals[lo])
+    vhi = to_float64(svals[hi])
+    if method in ("linear", "midpoint"):
+        vlo, vhi = flush_denormals(vlo), flush_denormals(vhi)
     if method == "linear":
         return vlo + (vhi - vlo) * (pos - lo)
     if method == "lower":

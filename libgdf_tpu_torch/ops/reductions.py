@@ -7,10 +7,15 @@ functions.h). NULL rows are replaced by the op's identity, then one torch
 reduction runs, as the JAX package leaves it to one XLA reduction. Result
 dtypes are the JAX package's: integer sums and products in int64 (the
 square of sum_of_squares is taken in the column's dtype first, as there),
-min and max in the column's dtype, floats in their own dtype. Float min
-and max are XLA's: a denormal is zero (core/bits.py::flush_denormals) and
--0.0 orders below +0.0. Results are 0-d tensors on the column's device;
-nothing here syncs. The min or max of an empty column raises GDFError.
+min and max in the column's dtype, floats in their own dtype. A float
+denormal is zero on every reduction's input, as XLA reads it
+(core/bits.py::flush_denormals): 300 float32 1e-40 sum to 0, not to the
+normal 3e-38, and [1e-40, 1e30] multiply to 0, not to 1e-10. The sums
+pay one flush pass before torch's reduction (sum_of_squares flushes the
+squares, which covers a denormal input: its square underflows to zero).
+Float min and max also order -0.0 below +0.0, as XLA does. Results are
+0-d tensors on the column's device; nothing here syncs. The min or max
+of an empty column raises GDFError.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ def reduce(col: Column, op: str) -> torch.Tensor:
     if op == "sum_squared":
         x = x * x            # squared on load, ≅ DeviceSumSquared :151-166
         op = "sum"
+    x = flush_denormals(x)
     if col.valid is not None:
         x = torch.where(col.valid, x, _identity(op, x.dtype))
     wide = None if x.is_floating_point() else torch.int64
@@ -56,7 +62,6 @@ def reduce(col: Column, op: str) -> torch.Tensor:
             f"{op} of an empty column")
     if not x.is_floating_point():
         return torch.amin(x) if op == "min" else torch.amax(x)
-    x = flush_denormals(x)
     out = torch.amin(x) if op == "min" else torch.amax(x)
     # torch leaves the sign of a zero result to the order of the rows
     zero = x == 0

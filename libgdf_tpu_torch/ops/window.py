@@ -24,6 +24,12 @@ Reductions: sum, min, max, count, avg, stddev, var (population).
 Frames: "rows" (`preceding` rows up to the current one; None = running)
 and "range" (rows of the partition whose order value lies in
 [current - preceding, current], up to the current sorted row).
+
+A denormal float value is zero, as XLA reads it, in every reduction and
+frame: min / max flush the values in their own dtype; the sum family
+flushes a float32 column before widening it to float64 (where it would be
+a normal number, `core/bits.py::to_float64`), and H2 flushes float64
+values as it loads them.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ from typing import Sequence
 
 import torch
 
-from ..core.bits import flush_denormals
+from ..core.bits import flush_denormals, to_float64
 from ..core.column import Column
 from ..core.dtypes import DtypeInfo, GDFDtype
 from ..core.errors import GDFStatus, require
@@ -138,7 +144,7 @@ def _windowed(vals, valid, seg_start, preceding: int, op: str):
     frame_lo = torch.maximum(part_first, idx - min(preceding - 1, n))
     if op in _SUM_FAMILY:
         return _sum_family_over(
-            torch.where(valid, vals.to(torch.float64), 0.0),
+            torch.where(valid, to_float64(vals), 0.0),
             valid.to(torch.float64), frame_lo, op)
 
     ident, cur = _minmax_ident(vals, valid, op)
@@ -180,7 +186,7 @@ def _windowed_range(vals, valid, seg_start, frame_lo, op: str):
     n = vals.shape[0]
     if op in _SUM_FAMILY:
         return _sum_family_over(
-            torch.where(valid, vals.to(torch.float64), 0.0),
+            torch.where(valid, to_float64(vals), 0.0),
             valid.to(torch.float64), frame_lo, op)
     idx, part_first = _part_first(seg_start)
     vop = torch.minimum if op == "min" else torch.maximum

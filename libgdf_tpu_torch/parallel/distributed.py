@@ -33,6 +33,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.bits import flush_denormals
 from ..core.column import Column
 from ..core.dtypes import DtypeInfo, GDFDtype
 from ..core.errors import GDFStatus, require
@@ -276,7 +277,8 @@ class _AggPlan:
     def finalize(self, t: Table) -> Table:
         for out, s, c in self.post_avg:
             scol, ccol = t[s], t[c]
-            avg = (scol.data.to(torch.float64)
+            # a float32 denormal sum is zero (groupby's deferred avg)
+            avg = (flush_denormals(scol.data).to(torch.float64)
                    / ccol.data.clamp(min=1).to(torch.float64))
             valid = ccol.data > 0
             if scol.valid is not None:

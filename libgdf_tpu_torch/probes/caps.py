@@ -7,7 +7,11 @@ what its probe computes (P-12, `p5`, is `gather.lane_gather` at int32):
   cap_dyn_store       p1  store x[:8] into a zeroed (32, 128) scratch at row
                           x[0, 0] + 3 (an offset whose rows leave the
                           scratch raises, as the probe's store does in
-                          interpret mode); out = its first rows
+                          interpret mode); out = its first rows. The kernel
+                          has no scratch: one block, each thread loads
+                          x[0, 0] and one 16-byte quad of x's first 8 rows
+                          in one round, then stores it into the window
+                          or zeros outside it (`store_window`)
   cap_cumsum2d        p2  cumsum over axis 0, then over axis 1: the tile
                           on chip at once (8 rows a warp as 16-byte loads),
                           a blocked column scan across the warps, each
@@ -19,8 +23,11 @@ what its probe computes (P-12, `p5`, is `gather.lane_gather` at int32):
                           alignment (16-byte loads where all three
                           pointers allow)
   cap_bulk_copy       p4  step b stages x[8b:8b+8] + 1000 and copies it to
-                          out rows [5b, 5b + 8) with cp.async.bulk; rows past
-                          5 (steps - 1) + 8 are not written (nor on the TPU)
+                          out rows [5b, 5b + 8), a later step overwriting an
+                          earlier one; rows past 5 (steps - 1) + 8 are not
+                          written (nor on the TPU). The kernel computes the
+                          closed form (`bulk_sources`): a warp 4 whole
+                          output rows, every load before any store
   cap_carry           p6  the int32 sum of x, carried across 8-row tiles:
                           one block, every load of a 16 KB chunk issued
                           before the first add, the carry a sum in
@@ -28,7 +35,8 @@ what its probe computes (P-12, `p5`, is `gather.lane_gather` at int32):
                           associative), one block reduction
   cap_dyn_loop        p7  out[0] = sum of x[i & 7] for i < (x[0, 0] & 7) + 2
 
-Integer arithmetic wraps, as int32 does in jnp.
+Integer arithmetic wraps, as int32 does in jnp. Every cap kernel takes
+views at any 4-byte alignment (16-byte accesses where x and out allow).
 
     python -m libgdf_tpu_torch.probes.caps [--device cpu]
 
@@ -116,6 +124,23 @@ def cap_onehot_compact_plain(x: torch.Tensor,
 def bulk_rows(steps: int) -> int:
     """Rows of cap_bulk_copy's output that its steps write."""
     return STEP_ADVANCE * (steps - 1) + STEP_ROWS
+
+
+def bulk_sources(steps: int) -> np.ndarray:
+    """The x row that each written output row of cap_bulk_copy holds (plus
+    1000), in the kernel's closed form: row r is written last by step
+    b = min(r // 5, steps - 1), which puts x row 8b + (r - 5b) there."""
+    r = np.arange(bulk_rows(steps))
+    b = np.minimum(r // STEP_ADVANCE, steps - 1)
+    return (STEP_ROWS - STEP_ADVANCE) * b + r
+
+
+def store_window(x00: int, rows: int) -> np.ndarray:
+    """cap_dyn_store's output rows as the kernel assigns them: the x row
+    that output row r holds, or -1 for a row of zeros."""
+    start = store_start(x00)
+    r = np.arange(rows)
+    return np.where((r >= start) & (r < start + STORE_ROWS), r - start, -1)
 
 
 def cap_bulk_copy_plain(x: torch.Tensor) -> torch.Tensor:

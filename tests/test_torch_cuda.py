@@ -85,6 +85,68 @@ def test_seg_scan(dev, n, dtype, kind, density):
         torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
+# H2's and H3's tiles hold 8192 4-byte or 4096 8-byte elements
+FLUSH_SIZES = [0, 1, 4095, 4096, 4097, 8191, 8192, 8193, 37 * 8192 + 1,
+               1_000_000]
+
+
+def _flush_values(rng, n, dtype, dev, specials):
+    """Zeros, +-denormals and +-1, 2 finfo.tiny (every flushed partial sum
+    an exact multiple of finfo.tiny), denormals on both sides of every
+    tile edge, and with `specials` NaN, inf and -inf near the end."""
+    d = 1e-40 if dtype == torch.float32 else 1e-310
+    t = torch.finfo(dtype).tiny
+    x = rng.choice(np.array([0.0, -0.0, d, -d, 2 * d, t, -t, 2 * t, -2 * t]),
+                   n)
+    for edge in (4096, 8192):
+        at = np.arange(edge, n + 1, edge)
+        x[at[at < n]] = d
+        x[at - 1] = -d
+    if specials and n > 10:
+        x[rng.integers(n - n // 10, n, 3)] = [np.nan, np.inf, -np.inf]
+    return torch.as_tensor(x, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("n", FLUSH_SIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("specials", [False, True])
+def test_scan_flush(dev, n, dtype, specials):
+    """C7: H2's float sum, with the flush folded into its load, equals the
+    plain version (flush, then scan) exactly, forward and reverse; the
+    unflushed sum counts the denormals."""
+    rng = np.random.default_rng(n + 11)
+    x = _flush_values(rng, n, dtype, dev, specials)
+    for reverse in (False, True):
+        got = kernels.scan("sum", x, reverse=reverse)
+        _same(got, kernels.scan_plain("sum", x, reverse))
+        _same(got, kernels.scan("sum", x, reverse=reverse))
+    if n >= 4096 and not specials:
+        assert not torch.equal(torch.cumsum(x, 0), kernels.scan("sum", x))
+
+
+@pytest.mark.parametrize("n", FLUSH_SIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("density", [0.0, 0.01, 1.0])
+def test_seg_scan_flush(dev, n, dtype, density):
+    """C7: H3's float segmented sum equals the plain version (flush, then
+    scan) exactly, NaN and inf included."""
+    rng = np.random.default_rng(n + 13)
+    x = _flush_values(rng, n, dtype, dev, True)
+    f = torch.as_tensor(rng.random(n) < density, device=dev)
+    _same(kernels.seg_scan("sum", f, x), kernels.seg_scan_plain("sum", f, x))
+
+
+def test_flush_is_for_sums(dev):
+    """Only a float sum flushes: max, min and carry keep denormals."""
+    d = torch.tensor([1e-40, -1e-40, 2e-40, 0.0] * 3000, device=dev)
+    f = torch.arange(d.shape[0], device=dev) % 7 == 0
+    for kind in ("max", "min"):
+        _same(kernels.scan(kind, d), kernels.scan_plain(kind, d))
+        _same(kernels.seg_scan(kind, f, d), kernels.seg_scan_plain(kind, f, d))
+    _same(kernels.seg_scan("carry", f, d), kernels.seg_scan_plain("carry", f, d))
+    assert bool((kernels.scan("max", d) > 0).all())
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_scan_unaligned_view(dev, dtype, reverse):
@@ -1017,6 +1079,80 @@ def test_cap_cumsum2d_edges(dev, rows, aligned):
         buf[1:] = x.view(-1)
         x = buf[1:].view(rows, 128)
     _same(caps.cap_cumsum2d(x), caps.cap_cumsum2d_plain(x))
+
+
+def _offset_view(x, offset):
+    """x's values in a view `offset` int32 elements into a new buffer (1:
+    not 16-byte aligned)."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    buf[offset:] = x.reshape(-1)
+    return buf[offset:].view(x.shape)
+
+
+def _launch_cap(name, entry, x, out, *args):
+    """A cap kernel's C entry point on a given `out` (the wrappers allocate
+    theirs, always aligned)."""
+    from libgdf_tpu_torch.probes import _common, caps
+    _common.launch(getattr(caps, name), name, entry, x, out, *args)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("steps", [1, 2, 3, 1000, 2 ** 17])
+@pytest.mark.parametrize("x_off,out_off", [(0, 0), (1, 0), (0, 1), (1, 3)])
+def test_cap_bulk_copy_edges(dev, steps, x_off, out_off):
+    """P-11 at one step, two, the probe's 3, 1000 and the wrapper's most
+    (2^17), over full-range int32 (+ 1000 wraps); x and out at 16-byte
+    aligned and unaligned offsets; the rows past bulk_rows stay as they
+    were."""
+    from libgdf_tpu_torch.probes import caps
+    rng = np.random.default_rng(steps)
+    x = _offset_view(torch.as_tensor(rng.integers(
+        -2 ** 31, 2 ** 31, (8 * steps, 128)).astype(np.int32), device=dev),
+        x_off)
+    r = caps.bulk_rows(steps)
+    want = caps.cap_bulk_copy_plain(x)[:r]
+    if out_off == 0:
+        _same(caps.cap_bulk_copy(x)[:r], want)
+    out = _offset_view(torch.full_like(x, 7), out_off)
+    _launch_cap("cap_bulk_copy", "gdf_probe_cap_bulk_copy", x, out, steps)
+    _same(out[:r], want)
+    assert bool((out[r:] == 7).all())
+
+
+@pytest.mark.parametrize("rows", [8, 16, 32])
+@pytest.mark.parametrize("x00", [-3, 0, 21])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cap_dyn_store_edges(dev, rows, x00, offset):
+    """P-8 at row offsets 0, 3 and 24 (the last whose 8 rows fit), rows 8,
+    16 and 32 (the whole scratch), x and out aligned and not."""
+    from libgdf_tpu_torch.probes import caps
+    rng = np.random.default_rng(rows + x00)
+    x = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (rows, 128))
+                        .astype(np.int32), device=dev)
+    x[0, 0] = x00
+    x = _offset_view(x, offset)
+    want = caps.cap_dyn_store_plain(x)
+    _same(caps.cap_dyn_store(x), want)
+    out = _offset_view(torch.full_like(x, 7), offset)
+    _same(_launch_cap("cap_dyn_store", "gdf_probe_cap_dyn_store", x, out,
+                      rows), want)
+
+
+@pytest.mark.parametrize("x00", [-4, 22, 2 ** 31 - 1, -2 ** 31])
+def test_cap_dyn_store_outside_offsets_raise(dev, x00):
+    """Offsets whose 8 rows leave the scratch raise in the wrapper, before
+    any launch; the kernel itself stores only zeros for them."""
+    from libgdf_tpu_torch.probes import caps
+    x = torch.ones((32, 128), dtype=torch.int32, device=dev)
+    x[0, 0] = x00
+    before = caps.cap_dyn_store.launches
+    with pytest.raises(ValueError, match="outside"):
+        caps.cap_dyn_store(x)
+    assert caps.cap_dyn_store.launches == before
+    out = _launch_cap("cap_dyn_store", "gdf_probe_cap_dyn_store", x,
+                      torch.full_like(x, 7), 32)
+    assert not out.any()
 
 
 @pytest.mark.parametrize("tiles", [1, 4, 1000])

@@ -6,16 +6,18 @@ and 1e-12 at float64. The cases where `jnp` and `torch` answer differently
 for the same call (division by zero, `div` on integers, float -> integer
 casts out of range, mixed dtypes) each have their own test.
 
-Denormal floats: a denormal is zero, as on the TPU (XLA flushes them, on
-the CPU too). The port flushes the inputs of the comparisons, float <->
-float casts, division, floor-division, sqrt / floor / ceil / log and
-min / max, each input in its own dtype before any promotion, and the
-denormal tests hold each to the JAX package on columns of zeros,
+Denormal floats: a denormal is zero wherever it enters arithmetic or a
+widening, as XLA reads it on the TPU and on the CPU. The port flushes
+every float input of the comparisons, float <-> float casts, add / sub /
+mul / div / floor-division, sqrt / floor / ceil / log and min / max, each
+in its own dtype before any promotion (a float32 denormal widened,
+scaled or summed is a normal number that no later flush catches), and
+the denormal tests hold each to the JAX package on columns of zeros,
 +-denormals and finfo.tiny, against the same dtype, the other float dtype
 and int32 / int64 columns, both ways round (and the ABI's typed and
-generic comparisons). add / sub / mul, the float sums and every result
-that is itself denormal are left out on purpose: there the port keeps
-torch's denormals, which differ from a zero and change no row set.
+generic comparisons); add / sub / mul and the sums are held in
+tests/test_torch_denormal_arith.py. Only a result that is itself
+denormal, read directly, stays torch's: the JAX package flushes it too.
 """
 import itertools
 

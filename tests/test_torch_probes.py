@@ -691,6 +691,33 @@ def test_cap_dyn_store_outside_the_scratch_raises(probe_caps, monkeypatch,
         caps.cap_dyn_store_plain(torch.as_tensor(x))
 
 
+@pytest.mark.parametrize("steps", [1, 2, 3, 4, 7, 1000])
+def test_bulk_copy_closed_form(steps):
+    """The closed form the P-11 kernel computes (each written row from the
+    last step that writes it) is the probe's sequence of overwriting
+    steps."""
+    x = torch.as_tensor(np.random.default_rng(steps).integers(
+        -2 ** 31, 2 ** 31, (8 * steps, 128)).astype(np.int32))
+    r = caps.bulk_rows(steps)
+    src = caps.bulk_sources(steps)
+    assert src.shape == (r,) and src.max() < 8 * steps
+    _equal(caps.cap_bulk_copy_plain(x)[:r],
+           (x[torch.as_tensor(src)].long() + 1000).to(torch.int32))
+
+
+@pytest.mark.parametrize("rows", [8, 16, 32])
+@pytest.mark.parametrize("x00", [-3, 0, 5, 21])
+def test_dyn_store_window(rows, x00):
+    """The rows the P-8 kernel assigns: x row r - start inside the 8-row
+    window at start = x[0, 0] + 3, zeros elsewhere, cut at `rows`."""
+    x = torch.arange(rows * 128, dtype=torch.int32).view(rows, 128) + 1
+    x[0, 0] = x00
+    src = torch.as_tensor(caps.store_window(x00, rows))
+    want = torch.where((src >= 0)[:, None], x[src.clamp(min=0)],
+                       torch.zeros_like(x))
+    _equal(caps.cap_dyn_store_plain(x), want)
+
+
 def test_cap_carry_and_the_broken_probe(probe_caps, capsys):
     """p6 still raises at its own call (no scratch for its SMEM
     accumulator), so it is held to its assertion, 4 x 8 x 128 = 4096; a
@@ -839,24 +866,47 @@ def test_mains_need_cuda_unless_asked(monkeypatch, capsys):
 
 def test_turns_cases_on_the_cpu(monkeypatch, capsys):
     """probes/turns.py's cases, this package standing in for the other on
-    CPU tensors: P-1, the gathers, the rolls, P-9, P-10 and P-13 with their
-    bounds (the rolls' by operations, their library call one rotation of
-    the repetitions; P-9's one of its two cumsums); at the probes' own
-    shapes each run equals its plain version. Without CUDA its main exits
-    1."""
+    CPU tensors: P-1, the gathers, the rolls, P-8, P-9, P-10, P-11, P-13
+    and H2's and H3's float64 sums, with their bounds (the rolls' by
+    operations, their library call one rotation of the repetitions; P-9's
+    one of its two cumsums; P-8's the 8 rows it reads and the rows it
+    writes; P-11's the rows it writes, read once and written once); at the
+    probes' own shapes each
+    run equals its plain version, the float sums within their bound. The
+    operators of cases W and F agree between the builds. Without CUDA its
+    main exits 1."""
+    monkeypatch.setattr(turns, "N_W", 1000)
     this = {"caps": caps, "gather": gather, "roll": roll,
-            "tilesort": tilesort}
+            "tilesort": tilesort, "pkg": libgdf_tpu_torch}
     cases = turns.cases(torch.device("cpu"), this)
     assert [c["key"] for c in cases] == [
         "P-1", "P-3", "P-3@scale", "P-4", "P-4@scale", "P-5", "P-5@scale",
-        "P-6", "P-7", "P-9", "P-10", "P-10@scale", "P-13", "P-13@scale"]
+        "P-6", "P-7", "P-8", "P-9", "P-10", "P-10@scale", "P-13",
+        "P-13@scale", "P-11", "P-11@scale", "K5a", "K5b"]
     bound = {c["key"]: c["bound_ms"] * turns.HBM_BYTES_PER_MS for c in cases}
     assert bound["P-1"] == 16 * tilesort.DEFAULT_N
     assert bound["P-10@scale"] == 12 * turns.COMPACT_SCALE_TILES * 256
-    for k, moved in (("P-9", 2 * 4 * 64 * 128), ("P-13", 4 * 32 * 128 + 4),
-                     ("P-13@scale", 4 * 8000 * 128 + 4)):
+    for k, moved in (("P-8", 4 * (8 + 16) * 128), ("P-9", 2 * 4 * 64 * 128),
+                     ("P-11", 2 * 4 * 18 * 128),
+                     ("P-11@scale", 2 * 4 * 5003 * 128),
+                     ("P-13", 4 * 32 * 128 + 4),
+                     ("P-13@scale", 4 * 8000 * 128 + 4),
+                     ("K5a", 16 * 1000), ("K5b", 17 * 1000)):
         assert bound[k] == pytest.approx(moved, rel=1e-12)
     by_key = {c["key"]: c for c in cases}
+    for k in ("K5a", "K5b"):
+        c = by_key.pop(k)
+        want = c["plain"]()
+        for run in (c["this"], c["other"]):
+            assert bool(((run() - want).abs() <= turns.REL_F64
+                         * c["bound_abs"] + turns.REL_F64).all())
+        if k == "K5a":
+            assert torch.equal(c["library"](), want)
+        else:
+            assert c["library"] is None
+    for k in ("P-8", "P-11", "P-11@scale"):
+        assert by_key[k]["library"] is None
+    cases = list(by_key.values())
     p9 = by_key.pop("P-9")
     assert p9["library_x"] == 2
     assert torch.equal(torch.cumsum(p9["library"](), 1, dtype=torch.int32),
@@ -885,6 +935,16 @@ def test_turns_cases_on_the_cpu(monkeypatch, capsys):
     for this, other in runs.values():
         a, b = this(), other()
         assert turns._equal(a.data, b.data) and torch.equal(a.valid, b.valid)
+        assert turns._close(a, b)
+    monkeypatch.setattr(turns, "N_FACT", 2000)
+    monkeypatch.setattr(turns, "N_DIM", 200)
+    runs = turns.flush_runs(torch.device("cpu"), libgdf_tpu_torch,
+                            libgdf_tpu_torch)
+    assert list(runs) == ["prefixsum_float64", "window_sum_rows",
+                          "window_avg_running", "window_sum_range",
+                          "groupby", "reductions"]
+    for this, other in runs.values():
+        assert turns._close(this(), other(), *turns.FLUSH_TOL)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert turns.main(["build/parent"]) == 1
     assert "CUDA" in capsys.readouterr().err
