@@ -111,7 +111,8 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    probes under benchmarks/ (libgdf_tpu_torch.probes, P-1 .. P-14), each
    at its probe's shapes and the gathers and the one-hot compaction also at
    the main path's scale (81,920 x 128 indices, 10.5M elements), and the
-   bulk copy also at 1000 steps (5,003 rows written), with the
+   bulk copy also at 1000 steps (5,003 rows written) and the dynamic
+   loop at (8, 2^20) ones, with the
    launch counts reset just before and read just after; every P-n must
    launch. Each output is held to its plain version on the card, exactly,
    and to its probe's own check (every 64K block sorted and key[payload]
@@ -269,6 +270,7 @@ CAP_PROBES = {"P-8": "p1", "P-9": "p2", "P-10": "p3", "P-11": "p4",
 GATHER_SCALE_ROWS = 81_920      # 10.5M indices: the gathers after a sort
 COMPACT_SCALE_TILES = 40_960    # 10.5M elements of one-hot compaction
 BULK_SCALE_STEPS = 1000         # P-11 at 2.56 MB read and written
+LOOP_SCALE_COLS = 1 << 20       # P-14 at 12.6 MB read, 4.2 MB written
 # H100 SXM data sheet, at 700 W: float32 outside the tensor cores (the
 # rate taken for 32-bit scalar work)
 SCALAR_OPS_PER_MS = 67e12 / 1e3
@@ -1651,8 +1653,9 @@ def _tile_sort_check(key):
 
 
 def make_probe_cases(dev, seed=0):
-    """Every P-n at its probe's shapes (the probe's own inputs), and the
-    gathers and the one-hot compaction at the main path's scale."""
+    """Every P-n at its probe's shapes (the probe's own inputs), the
+    gathers and the one-hot compaction at the main path's scale, and P-11
+    and P-14 at a scale that their bytes bound."""
     def t(a):
         return torch.as_tensor(a, device=dev)
 
@@ -1731,12 +1734,14 @@ def make_probe_cases(dev, seed=0):
                 torch.take_along_dim(px, i64, 1)
         elif pn == "P-13":
             lib = lambda px=args[0]: px.sum(dtype=torch.int32)
-        out_bytes = {"P-13": 4, "P-14": 128 * 4}.get(pn, nbytes(args[0]))
+        out_bytes = {"P-13": 4}.get(pn, nbytes(args[0]))
         # P-11 reads the rows it writes, each once (bulk_sources); P-8
-        # reads only x's first STORE_ROWS rows (x[0, 0] among them)
+        # reads only x's first STORE_ROWS rows (x[0, 0] among them); P-14
+        # the rows its trip count reads (loop_bytes)
         moved = {"P-8": caps.STORE_ROWS * 128 * 4 + out_bytes,
-                 "P-11": 2 * caps.bulk_rows(3) * 128 * 4}.get(
-            pn, nbytes(*args) + out_bytes)
+                 "P-11": 2 * caps.bulk_rows(3) * 128 * 4,
+                 "P-14": caps.loop_bytes(int(inputs["p7"][0][0, 0]), 128)
+                 }.get(pn, nbytes(*args) + out_bytes)
         cases.append(probe_case(
             pn, lambda kernel=kernel, args=args: kernel(*args),
             lambda plain=plain, args=args: plain(*args), moved,
@@ -1765,6 +1770,14 @@ def make_probe_cases(dev, seed=0):
         f"written", scale=True, rows=rows,
         check=lambda out, want=want, rows=rows: torch.equal(out[:rows],
                                                             want)))
+    lx = torch.ones((caps.LOOP_ROWS, LOOP_SCALE_COLS), dtype=torch.int32,
+                    device=dev)
+    cases.append(probe_case(
+        "P-14", lambda: caps.cap_dyn_loop(lx),
+        lambda: caps.cap_dyn_loop_plain(lx),
+        caps.loop_bytes(1, LOOP_SCALE_COLS),
+        f"int32 {tuple(lx.shape)} of ones, 3 trips", scale=True,
+        check=lambda out: bool((out == 3).all())))
     return cases
 
 

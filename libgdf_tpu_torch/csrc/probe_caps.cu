@@ -15,9 +15,9 @@
 //                                     (x[0, 0] & 7) + 2 over rows x[i & 7]
 //
 // On the TPU these ask whether Mosaic lowers a feature at all; on CUDA each
-// does by construction, and the kernels are a self-test. All but P-10 move
-// a few KB and are bound by their launch; P-10 is bound by device memory at
-// scale (12 bytes an element).
+// does by construction, and the kernels are a self-test. At the probes'
+// shapes each moves a few KB and is bound by its launch; P-10, P-11, P-13
+// and P-14 are bound by device memory at scale.
 //
 // P-10 design: the TPU compacts a tile by multiplying it (split in two
 // 16-bit halves, in float32) by a 256 x 256 one-hot matrix: the MXU as a
@@ -78,6 +78,21 @@
 // over 16 KB chunks for more tiles; then one block reduction (a warp's
 // shuffles, 8 warp totals through shared memory, one barrier) and one
 // store. 4-byte loads where x is not 16-byte aligned.
+//
+// P-14 design: the probe's loop of run-time trip count n = (x[0, 0] & 7) +
+// 2, in [2, 9], over rows i & 7 has a closed form: out[j] is the sum of
+// x[k, j] over k < min(n, 8), plus x[0, j] again when n == 9 (uint32
+// wrap; `caps.loop_counts`). A loop that loads x[0, 0] first and a word
+// a trip after it costs two dependent round trips to memory. Here a
+// thread owns a quad of 4 consecutive columns and loads x[0, 0] with
+// its quads of rows 0 and 1, which every n reads; rows 2..7 go in the
+// same round where x is narrow (the wrapper's route, `caps.loop_plan`:
+// one round trip, a speculative read of a few KB, each row masked by k <
+// n), else as loads predicated on k < n, made once n is known, all
+// before the first add, so the kernel reads only the rows the function
+// reads (bound by device memory at scale: min(n, 8) rows read, one
+// written). One 16-byte store; 4-byte accesses where x or out is not
+// 16-byte aligned or cols % 4 != 0.
 #include "common.cuh"
 
 namespace {
@@ -91,6 +106,7 @@ constexpr int kCumRows = 64;                    // p2's tile, at most
 constexpr int kCompactTile = 256;               // p3's tile
 constexpr int kStepRows = 8;                    // p4's and p6's tile rows
 constexpr int kStepAdvance = 5;                 // p4's offset per step
+constexpr int kLoopRows = 8;                    // rows p7 reads, i & 7
 constexpr int kMaxDevices = 16;
 constexpr int kCompactPerLane = kCompactTile / 32;   // 8 elements a lane
 
@@ -320,14 +336,69 @@ cap_carry(const int* __restrict__ x, int* __restrict__ out,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// P-14: a thread a quad of 4 consecutive columns; `live` of them (the
+// last quad of a width that is not a multiple of 4 holds fewer) through
+// 4-byte accesses where kVec is false.
+constexpr int kLoopThreads = 128;
+
+template <bool kVec>
+__device__ __forceinline__ uint4 load_cols(const int* p, int live) {
+  if (kVec) return *reinterpret_cast<const uint4*>(p);
+  unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (i < live) w[i] = (unsigned)p[i];
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store_cols(int* p, uint4 v, int live) {
+  if (kVec) {
+    *reinterpret_cast<uint4*>(p) = v;
+    return;
+  }
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (i < live) p[i] = (int)w[i];
+  }
+}
+
+// kAll: rows 2..7 are loaded with x[0, 0] and rows 0, 1 whatever the trip
+// count (one round trip); else only the rows k < n, once n is known.
+template <bool kVec, bool kAll>
+__global__ void __launch_bounds__(kLoopThreads)
 cap_dyn_loop(const int* __restrict__ x, int* __restrict__ out, int cols) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
+  const long long j = 4 * ((long long)blockIdx.x * kLoopThreads +
+                           threadIdx.x);
   if (j >= cols) return;
-  const int n = (x[0] & 7) + 2;
-  unsigned acc = 0;
-  for (int i = 0; i < n; ++i) acc += (unsigned)x[(i & 7) * cols + j];
-  out[j] = (int)acc;
+  const int live = cols - j < 4 ? (int)(cols - j) : 4;
+  const int x00 = x[0];
+  uint4 v[kLoopRows];
+#pragma unroll
+  for (int k = 0; k < kLoopRows; ++k) {
+    if (k < 2 || kAll) v[k] = load_cols<kVec>(x + (long long)k * cols + j,
+                                              live);
+  }
+  const int n = (x00 & 7) + 2;                  // 2 .. 9 trips
+  if (!kAll) {
+#pragma unroll
+    for (int k = 2; k < kLoopRows; ++k) {
+      v[k] = k < n ? load_cols<kVec>(x + (long long)k * cols + j, live)
+                   : make_uint4(0, 0, 0, 0);
+    }
+  }
+  uint4 acc = add4(v[0], v[1]);
+#pragma unroll
+  for (int k = 2; k < kLoopRows; ++k) {
+    // a mask, not a branch, so that no load is sunk to wait for n
+    const unsigned m = k < n ? ~0u : 0u;
+    acc = add4(acc, make_uint4(v[k].x & m, v[k].y & m, v[k].z & m,
+                               v[k].w & m));
+  }
+  if (n > kLoopRows) acc = add4(acc, v[0]);     // trip 8 reads row 0 again
+  store_cols<kVec>(out + j, acc, live);
 }
 
 cudaStream_t as_stream(void* stream) {
@@ -435,13 +506,23 @@ int gdf_probe_cap_carry(const void* x, void* out, int tiles, void* stream) {
   return 0;
 }
 
-// x int32 (8, cols); out int32 (1, cols).
-int gdf_probe_cap_dyn_loop(const void* x, void* out, int cols,
+// x int32 (8, cols); out int32 (1, cols); any 4-byte alignment (16-byte
+// accesses where x and out are 16-byte aligned and cols % 4 == 0). all_rows
+// != 0 loads all 8 rows with x[0, 0] (the wrapper's route for narrow x,
+// `caps.loop_plan`); 0 loads rows 2..7 only where the trip count reads
+// them.
+int gdf_probe_cap_dyn_loop(const void* x, void* out, int cols, int all_rows,
                            void* stream) {
   if (cols < 1) return (int)cudaErrorInvalidValue;
-  cap_dyn_loop<<<(unsigned)((cols + kThreads - 1) / kThreads), kThreads, 0,
-                 as_stream(stream)>>>(static_cast<const int*>(x),
-                                      static_cast<int*>(out), cols);
+  const bool vec = aligned16(x) && aligned16(out) && cols % 4 == 0;
+  auto* kernel = vec ? (all_rows ? &cap_dyn_loop<true, true>
+                                 : &cap_dyn_loop<true, false>)
+                     : (all_rows ? &cap_dyn_loop<false, true>
+                                 : &cap_dyn_loop<false, false>);
+  const long long quads = (cols + 3LL) / 4;
+  kernel<<<(unsigned)((quads + kLoopThreads - 1) / kLoopThreads),
+           kLoopThreads, 0, as_stream(stream)>>>(
+      static_cast<const int*>(x), static_cast<int*>(out), cols);
   GDF_LAUNCH_CHECK();
   return 0;
 }

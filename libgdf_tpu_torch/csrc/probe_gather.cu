@@ -22,8 +22,18 @@
 // designs stage the table on chip once per SM, not once per block of
 // indices, and keep enough 16-byte loads in flight to stream at HBM rate.
 //
-//   lane_gather_rows: a CUDA block stages 16 rows of x (8 KB) and gathers
-//     each output row from its own staged row.
+//   lane_gather_rows (:63, and caps :138 at int32): a warp a row, no block
+//     barrier. Lane l loads its 16-byte quads x[r, 4l..4l+3] and idx[r,
+//     4l..4l+3] together, writes its x quad into the warp's own 512-byte
+//     row of shared memory, and after __syncwarp() reads the 4 words its
+//     indices name and stores them as one 16-byte store: one round trip
+//     to memory. A block of 8 warps for every 8 rows; the block scheduler
+//     keeps the card full at 81,920 rows, where a persistent grid whose
+//     warps load their next row before gathering the current one was
+//     slower on the H100 (probes/designs.py), and so was a gather from
+//     registers (4 shuffles of each of the lane's 4 words, then a
+//     select). 4-byte accesses (words l + 32 k a lane, coalesced) where
+//     x, idx or out is not 16-byte aligned.
 //   sublane_gather_persistent (:87): a persistent grid of G blocks, G the
 //     smaller of the blocks the SMs hold at once and 4 x the row chunks
 //     (the wrapper's `sublane_plan`). Block b holds 32-column slab b % 4
@@ -57,7 +67,7 @@ namespace {
 
 constexpr int kLanes = 128;
 constexpr int kGatherThreads = 256;
-constexpr int kLaneRows = 16;                   // rows per block, lane gather
+constexpr int kGatherWarps = kGatherThreads / 32;   // rows a block, lane
 constexpr int kSlabCols = 32;                   // columns per slab, sublane
 constexpr int kMaxSubTableRows = 1792;          // 224 KB of shared memory
 constexpr int kSubThreads = 1024;
@@ -241,21 +251,60 @@ flat_take_resident(const unsigned* __restrict__ table, long long table_n,
 
 // -- the lane and sublane gathers ------------------------------------------
 
+// The 4 words of a row that lane `lane` holds: 4 consecutive words, moved
+// as one 16-byte access (kVec), or words lane + 32 k, moved as coalesced
+// 4-byte accesses.
+template <bool kVec, typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ p, int lane,
+                                         T (&v)[4]) {
+  if (kVec) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p + 4 * lane);
+    v[0] = (T)q.x; v[1] = (T)q.y; v[2] = (T)q.z; v[3] = (T)q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = p[lane + 32 * k];
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store_row(unsigned* p, int lane,
+                                          const unsigned (&v)[4]) {
+  if (kVec) {
+    *reinterpret_cast<uint4*>(p + 4 * lane) = make_uint4(v[0], v[1], v[2],
+                                                         v[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) p[lane + 32 * k] = v[k];
+  }
+}
+
+// A warp a row: each lane loads its 4 words of x and of idx, the warp
+// stages x's row in its own 512 bytes of shared memory, and after
+// __syncwarp() each lane reads the 4 words its indices name and stores
+// them.
+template <bool kVec>
 __global__ void __launch_bounds__(kGatherThreads)
 lane_gather_rows(const unsigned* __restrict__ x, const int* __restrict__ idx,
                  unsigned* __restrict__ out, long long rows, unsigned fill) {
-  __shared__ unsigned s_x[kLaneRows * kLanes];
-  const long long r0 = (long long)blockIdx.x * kLaneRows;
-  const int live = (int)(rows - r0 < kLaneRows ? rows - r0 : kLaneRows);
-  const long long e0 = r0 * kLanes;
-  for (int e = threadIdx.x; e < live * kLanes; e += kGatherThreads) {
-    s_x[e] = x[e0 + e];
+  __shared__ __align__(16) unsigned s_rows[kGatherWarps][kLanes];
+  const int lane = threadIdx.x & 31;
+  unsigned* row = s_rows[threadIdx.x >> 5];
+  const long long r = (long long)blockIdx.x * kGatherWarps +
+                      (threadIdx.x >> 5);
+  if (r >= rows) return;                        // the whole warp
+  unsigned xv[4];
+  int iv[4];
+  load_row<kVec>(x + r * kLanes, lane, xv);
+  load_row<kVec>(idx + r * kLanes, lane, iv);
+  store_row<kVec>(row, lane, xv);
+  __syncwarp();
+  unsigned o[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const long long c = resolve(iv[k], kLanes);
+    o[k] = c >= 0 ? row[c] : fill;
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < live * kLanes; e += kGatherThreads) {
-    const long long c = resolve(idx[e0 + e], kLanes);
-    out[e0 + e] = c >= 0 ? s_x[(e & ~(kLanes - 1)) + c] : fill;
-  }
+  store_row<kVec>(out + r * kLanes, lane, o);
 }
 
 // Row k (< rows per warp) of chunk ch that this warp gathers, or -1.
@@ -436,9 +485,12 @@ extern "C" {
 int gdf_probe_lane_gather(const void* x, const void* idx, void* out,
                           long long rows, int fill, void* stream) {
   if (rows <= 0) return rows == 0 ? 0 : (int)cudaErrorInvalidValue;
-  const long long blocks = (rows + kLaneRows - 1) / kLaneRows;
-  lane_gather_rows<<<(unsigned)blocks, kGatherThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  const long long blocks = (rows + kGatherWarps - 1) / kGatherWarps;
+  auto* kernel = aligned16(x) && aligned16(idx) && aligned16(out)
+                     ? &lane_gather_rows<true>
+                     : &lane_gather_rows<false>;
+  kernel<<<(unsigned)blocks, kGatherThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned*>(x), static_cast<const int*>(idx),
       static_cast<unsigned*>(out), rows, (unsigned)fill);
   GDF_LAUNCH_CHECK();

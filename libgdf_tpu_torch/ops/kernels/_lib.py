@@ -62,7 +62,7 @@ _SIGNATURES = {
     "gdf_probe_cap_onehot_compact": (_I, [_P, _P, _P, _I64, _P]),
     "gdf_probe_cap_bulk_copy": (_I, [_P, _P, _I, _P]),
     "gdf_probe_cap_carry": (_I, [_P, _P, _I, _P]),
-    "gdf_probe_cap_dyn_loop": (_I, [_P, _P, _I, _P]),
+    "gdf_probe_cap_dyn_loop": (_I, [_P, _P, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

@@ -33,7 +33,12 @@ what its probe computes (P-12, `p5`, is `gather.lane_gather` at int32):
                           before the first add, the carry a sum in
                           registers (unsigned addition wraps and is
                           associative), one block reduction
-  cap_dyn_loop        p7  out[0] = sum of x[i & 7] for i < (x[0, 0] & 7) + 2
+  cap_dyn_loop        p7  out[0] = sum of x[i & 7] for i < (x[0, 0] & 7) + 2:
+                          its closed form (`loop_counts`), a thread 4
+                          columns; x[0, 0] and rows 0 and 1 in the first
+                          round, rows 2..7 with them for a narrow x, else
+                          only where the trip count reads them
+                          (`loop_plan`)
 
 Integer arithmetic wraps, as int32 does in jnp. Every cap kernel takes
 views at any 4-byte alignment (16-byte accesses where x and out allow).
@@ -65,6 +70,10 @@ MAX_CUMSUM_ROWS = 64                    # p2
 COMPACT_TILE = 256                      # p3
 STEP_ROWS, STEP_ADVANCE = 8, 5          # p4, and p6's tile
 LOOP_ROWS = 8                           # p7
+# the widest x whose 8 rows cap_dyn_loop reads whatever its trip count:
+# up to here that was no slower than reading only the rows the trip count
+# needs, at any trip count, on the H100 (`designs.py`, PERF.md)
+LOOP_ALL_ROWS_COLS = 16_384
 CAPS = ("cap_dyn_store", "cap_cumsum2d", "cap_onehot_compact",
         "cap_bulk_copy", "cap_carry", "cap_dyn_loop")
 
@@ -165,6 +174,29 @@ def loop_trips(x00: int) -> int:
     return (x00 & 7) + 2
 
 
+def loop_counts(x00: int) -> np.ndarray:
+    """The times p7's loop adds row k of x, for k < 8, in the kernel's
+    closed form: once for each k < min(n, 8) and once more for row 0 when
+    n = 9, n = loop_trips(x00) in [2, 9]."""
+    n = loop_trips(x00)
+    k = np.arange(LOOP_ROWS)
+    return (k < n).astype(np.int64) + (k + LOOP_ROWS < n)
+
+
+def loop_bytes(x00: int, cols: int) -> int:
+    """The bytes cap_dyn_loop must move for x (8, cols): the rows of x its
+    trip count reads (x[0, 0] among them), each once, and the row it
+    writes."""
+    return (int(np.count_nonzero(loop_counts(x00))) + 1) * cols * 4
+
+
+def loop_plan(cols: int) -> bool:
+    """cap_dyn_loop's route for x (8, cols): True to load all 8 rows with
+    x[0, 0] in one round trip (up to LOOP_ALL_ROWS_COLS columns), False to
+    load rows 2..7 only where the trip count reads them."""
+    return cols <= LOOP_ALL_ROWS_COLS
+
+
 def cap_dyn_loop_plain(x: torch.Tensor) -> torch.Tensor:
     _check_loop(x)
     rows = [i & 7 for i in range(loop_trips(int(x[0, 0])))]
@@ -250,13 +282,13 @@ def cap_carry(x: torch.Tensor) -> torch.Tensor:
 
 
 def cap_dyn_loop(x: torch.Tensor) -> torch.Tensor:
-    """x int32 (8, cols) -> (1, cols)."""
+    """x int32 (8, cols) -> (1, cols), on the route of loop_plan(cols)."""
     _check_loop(x)
     if _common.on_cpu(x):
         return cap_dyn_loop_plain(x)
     out = torch.empty((1, x.shape[1]), dtype=x.dtype, device=x.device)
     _common.launch(cap_dyn_loop, "cap_dyn_loop", "gdf_probe_cap_dyn_loop", x,
-                   out, x.shape[1])
+                   out, x.shape[1], int(loop_plan(x.shape[1])))
     return out
 
 

@@ -12,11 +12,11 @@ over float32 or int32 values and int32 indices. Indices act as the probes'
 `jnp.take` / `take_along_axis` do in interpret mode: one in [-size, 0)
 counts from the end, and one outside [-size, size) gives NaN (float32) or
 INT32_MIN (int32). The kernels (`csrc/probe_gather.cu`) hold the table on
-chip: a staged row per block (lane); a 32-column slab per block of a
-persistent grid, staged once by TMA (sublane, `sublane_plan`); for the
-flat take, the table's first words resident in the shared memory of each
-block of a persistent grid and the rest read through L1 / L2 (`take_plan`,
-`take_grid`).
+chip: a row in its warp's shared memory, one round trip a row (lane); a
+32-column slab per block of a persistent grid, staged once by TMA
+(sublane, `sublane_plan`); for the flat take, the table's first words
+resident in the shared memory of each block of a persistent grid and the
+rest read through L1 / L2 (`take_plan`, `take_grid`).
 
     python -m libgdf_tpu_torch.probes.gather [--device cpu]
 

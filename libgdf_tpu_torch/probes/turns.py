@@ -10,16 +10,19 @@ its own kernel library with its own C signatures; that library is built
 from OTHER/libgdf_tpu_torch/csrc into OTHER/build/kernels.
 
 The cases, on the inputs of `chip_smoke.py`'s probe path: P-1
-(`tile_sort` of 11,534,336 pairs), P-3 (`sublane_gather`), P-4
-(`flat_take` of the 64K table) and P-5 (`flat_take` of the (512, 128)
-table) at the probe's own shapes and at 81,920 x 128 indices, P-6 and P-7
+(`tile_sort` of 11,534,336 pairs), P-2 (`lane_gather`), P-3
+(`sublane_gather`), P-4 (`flat_take` of the 64K table) and P-5
+(`flat_take` of the (512, 128) table) at the probe's own shapes and at
+81,920 x 128 indices (P-2's x there a float32 (81,920, 128)), P-6 and P-7
 (`roll_static`, `roll_dynamic`: 1024 rotations of the probe's (512, 128)
 block), P-8 (`cap_dyn_store` of the probe's (16, 128) zeros), P-9
 (`cap_cumsum2d` of the probe's (64, 128) ones), P-10
 (`cap_onehot_compact`) at the probe's 256 elements and at 40,960 tiles
 of 256, P-11 (`cap_bulk_copy`, its written rows) at the probe's 3 steps
 and at 1000 steps of random int32, P-13 (`cap_carry`) at the probe's 4
-tiles of ones and at 1000 tiles of random int32, and H2 and H3's float64
+tiles of ones and at 1000 tiles of random int32, P-12 (`lane_gather` of
+the probe's int32 (8, 128)), P-14 (`cap_dyn_loop`) at the probe's (8,
+128) ones and at (8, 2^20) ones (3 trips), and H2 and H3's float64
 sums at the shapes of `chip_smoke.py`'s kernel phases (K5a: `scan` of 10M
 standard normals; K5b: `seg_scan` of 10M with a head every ~4 rows), with
 the denormal flush folded into the load, against the other build's (which
@@ -40,10 +43,11 @@ rotation, so its times are also given times the repetitions
 (`library_x_reps`: no one PyTorch call computes the probe's chain of
 rotations without folding it); for P-9 one `torch.cumsum(x, 0)`, given
 times 2 (the function is that cumsum and another over axis 1); for P-13
-`x.sum(dtype=torch.int32)`. The bound is the bytes read once and
-written once over the H100's 3.35 TB/s or, for the rolls, the 32-bit
-operations (a move and an add an element a repetition) over its 67 T/s,
-whichever is larger. Case W times, in the same turns, the analytic
+`x.sum(dtype=torch.int32)`; none for P-8, P-11 and P-14. The bound is
+the bytes read once and written once (P-14: the rows its trip count
+reads, `caps.loop_bytes`) over the H100's 3.35 TB/s or, for the rolls,
+the 32-bit operations (a move and an add an element a repetition) over
+its 67 T/s, whichever is larger. Case W times, in the same turns, the analytic
 path's `window_min_rows` and `window_max_range` of both builds on
 chip_smoke.py's 10M-row table W (host clock around a call ending in a
 device sync, as chip_smoke.py's rows/s), after checking that the two
@@ -89,7 +93,9 @@ WINDOWS = {"window_min_rows": dict(reduction="min", preceding=10_000),
            "window_max_range": dict(reduction="max", preceding=N_W // 4,
                                     frame="range")}
 COMPACT_SCALE_TILES = 40_960
-LIBRARY = {"sublane": lambda x, i64: torch.take_along_dim(x, i64, 0),
+LOOP_SCALE_COLS = 1 << 20                   # P-14@scale, x of ones
+LIBRARY = {"lane": lambda x, i64: torch.take_along_dim(x, i64, 1),
+           "sublane": lambda x, i64: torch.take_along_dim(x, i64, 0),
            "flat": lambda t, i64: t.reshape(-1)[i64]}
 
 
@@ -127,10 +133,10 @@ def _case(key, shapes, this, other, plain, library, moved, ops=0,
 
 
 def cases(dev: torch.device, old: dict, seed: int = 0) -> list:
-    """P-1, the gathers P-3, P-4, P-5, the rolls P-6, P-7, P-8, P-9, P-10,
-    P-11 and P-13, drawn as chip_smoke.py's probe path draws them (the
-    lane gather's draws included, then dropped; P-13's 1000 tiles, then
-    P-11's 1000 steps, then H2's and H3's float64 sums last)."""
+    """P-1, the gathers P-2 .. P-5, the rolls P-6, P-7, P-8, P-9, P-10,
+    P-13, P-11, P-12 and P-14, drawn as chip_smoke.py's probe path draws
+    them (P-13's 1000 tiles, then P-11's 1000 steps, then H2's and H3's
+    float64 sums last)."""
     out = []
     n = tilesort.DEFAULT_N
     key = torch.as_tensor(np.random.default_rng(0).integers(
@@ -148,22 +154,13 @@ def cases(dev: torch.device, old: dict, seed: int = 0) -> list:
     for i, (_, kind, x, idx) in enumerate(gather.probe_inputs()):
         size = {"lane": 128, "sublane": x.shape[0], "flat": x.size}[kind]
         big = rng.integers(0, size, (SCALE_ROWS, 128)).astype(np.int32)
-        if kind == "lane":
-            rng.standard_normal((SCALE_ROWS, 128))
-            continue
-        pn = "P-3" if kind == "sublane" else "P-4" if i == 2 else "P-5"
-        xt = torch.as_tensor(x, device=dev)
-        for k, it in ((pn, torch.as_tensor(idx, device=dev)),
-                      (f"{pn}@scale", torch.as_tensor(big, device=dev))):
-            i64 = it.long()
-            out.append(_case(
-                k, f"x {tuple(xt.shape)}, idx {tuple(it.shape)}",
-                lambda f=gather.GATHERS[kind], xt=xt, it=it: f(xt, it),
-                lambda f=old["gather"].GATHERS[kind], xt=xt, it=it:
-                f(xt, it),
-                lambda f=gather.PLAIN[kind], xt=xt, it=it: f(xt, it),
-                lambda f=LIBRARY[kind], xt=xt, i64=i64: f(xt, i64),
-                _nbytes(xt) + 2 * _nbytes(it)))
+        big_x = rng.standard_normal((SCALE_ROWS, 128)).astype(np.float32) \
+            if kind == "lane" else x
+        pn = {"lane": "P-2", "sublane": "P-3"}.get(
+            kind, "P-4" if i == 2 else "P-5")
+        for k, xv, iv in ((pn, x, idx), (f"{pn}@scale", big_x, big)):
+            xt, it = (torch.as_tensor(a, device=dev) for a in (xv, iv))
+            out.append(_gather_case(k, kind, xt, it, old))
 
     x, s = roll.probe_inputs()
     rx, rs = torch.as_tensor(x, device=dev), torch.as_tensor(s, device=dev)
@@ -237,8 +234,29 @@ def cases(dev: torch.device, old: dict, seed: int = 0) -> list:
             lambda f=old["caps"].cap_bulk_copy, x=x, r=r: f(x)[:r],
             lambda x=x, r=r: caps.cap_bulk_copy_plain(x)[:r], None,
             2 * r * caps.LANES * 4))
+
+    px, pi = (torch.as_tensor(a, device=dev) for a in inputs["p5"])
+    out.append(_gather_case("P-12", "lane", px, pi, old))
+    for k, x in (("P-14", torch.as_tensor(inputs["p7"][0], device=dev)),
+                 ("P-14@scale", torch.ones((caps.LOOP_ROWS, LOOP_SCALE_COLS),
+                                           dtype=torch.int32, device=dev))):
+        out.append(_case(
+            k, f"int32 {tuple(x.shape)}", lambda x=x: caps.cap_dyn_loop(x),
+            lambda f=old["caps"].cap_dyn_loop, x=x: f(x),
+            lambda x=x: caps.cap_dyn_loop_plain(x), None,
+            caps.loop_bytes(int(x[0, 0]), x.shape[1])))
     out += flush_cases(dev, old)
     return out
+
+
+def _gather_case(key, kind, xt, it, old) -> dict:
+    i64 = it.long()
+    return _case(
+        key, f"x {tuple(xt.shape)} {xt.dtype}, idx {tuple(it.shape)}",
+        lambda f=gather.GATHERS[kind]: f(xt, it),
+        lambda f=old["gather"].GATHERS[kind]: f(xt, it),
+        lambda f=gather.PLAIN[kind]: f(xt, it),
+        lambda f=LIBRARY[kind]: f(xt, i64), _nbytes(xt) + 2 * _nbytes(it))
 
 
 def flush_cases(dev: torch.device, old: dict) -> list:
@@ -468,9 +486,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--cases", default=None,
-                    help="comma-separated names (P-1, P-3, P-4, P-5, P-6, "
-                         "P-7, P-8, P-9, P-10, P-11, P-13, K5a, K5b; W for "
-                         "the windows, F for the flushed operators); "
+                    help="comma-separated names (P-1 .. P-14, K5a, K5b; "
+                         "W for the windows, F for the flushed operators); "
                          "default all")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from libgdf_tpu_torch.ops import kernels
+from libgdf_tpu_torch.probes.caps import LOOP_ALL_ROWS_COLS
 
 pytestmark = pytest.mark.cuda
 
@@ -847,14 +848,26 @@ def _gather_idx(rng, rows, size, dev):
     return torch.as_tensor(idx, device=dev)
 
 
-@pytest.mark.parametrize("rows", [1024, 81_920, 13])
+@pytest.mark.parametrize("rows", [1, 8, 13, 31, 32, 33, 1024, 81_920])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
-def test_lane_gather(dev, rows, dtype):
-    from libgdf_tpu_torch.probes import gather
+@pytest.mark.parametrize("offset", [0, 1])
+def test_lane_gather(dev, rows, dtype, offset):
+    """A warp a row, 8 rows a block: one row, the probe's 8, 13, a warp's
+    32 rows and either side, P-2's 1024 and 81,920 (more blocks than the
+    card holds at once), with negative and out-of-range indices; x, idx
+    and out 16-byte aligned, or one element off (the 4-byte path)."""
+    from libgdf_tpu_torch.probes import _common, gather
     rng = np.random.default_rng(rows)
-    x = _values(rng, rows * 128, dtype, dev).view(rows, 128)
-    idx = _gather_idx(rng, rows, 128, dev)
-    _same(gather.lane_gather(x, idx), gather.lane_gather_plain(x, idx))
+    x = _offset_view(_values(rng, rows * 128, dtype, dev).view(rows, 128),
+                     offset)
+    idx = _offset_view(_gather_idx(rng, rows, 128, dev), offset)
+    want = gather.lane_gather_plain(x, idx)
+    _same(gather.lane_gather(x, idx), want)
+    out = _offset_view(torch.full_like(x, 7), offset)
+    _common.launch(gather.lane_gather, "lane_gather",
+                   "gdf_probe_lane_gather", x, idx, out, rows,
+                   gather.FILL_BITS[dtype])
+    _same(out, want)
 
 
 @pytest.mark.parametrize("rows", [1024, 81_920, 13, 1])
@@ -1153,6 +1166,33 @@ def test_cap_dyn_store_outside_offsets_raise(dev, x00):
     out = _launch_cap("cap_dyn_store", "gdf_probe_cap_dyn_store", x,
                       torch.full_like(x, 7), 32)
     assert not out.any()
+
+
+@pytest.mark.parametrize("cols", sorted({1, 3, 4, 127, 128, 129, 4096, 4097,
+                                         65_536, LOOP_ALL_ROWS_COLS - 1,
+                                         LOOP_ALL_ROWS_COLS,
+                                         LOOP_ALL_ROWS_COLS + 1}))
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cap_dyn_loop_edges(dev, cols, offset):
+    """P-14 at every trip count (x[0, 0] & 7 from 0 to 7, and -3 and both
+    int32 extremes) over full-range int32 whose sums wrap: the wrapper's
+    route, and both routes through the C entry point, at widths either
+    side of a quad and of the route's threshold; x and out aligned, or
+    one element off (the 4-byte path; so is any cols % 4 != 0)."""
+    from libgdf_tpu_torch.probes import caps
+    rng = np.random.default_rng(cols)
+    x = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (8, cols))
+                        .astype(np.int32), device=dev)
+    for x00 in list(range(8)) + [-3, -2 ** 31, 2 ** 31 - 1]:
+        x[0, 0] = x00
+        xv = _offset_view(x, offset)
+        want = caps.cap_dyn_loop_plain(xv)
+        _same(caps.cap_dyn_loop(xv), want)
+        for all_rows in (1, 0):
+            out = _offset_view(torch.full((1, cols), 7, dtype=torch.int32,
+                                          device=dev), offset)
+            _same(_launch_cap("cap_dyn_loop", "gdf_probe_cap_dyn_loop", xv,
+                              out, cols, all_rows), want)
 
 
 @pytest.mark.parametrize("tiles", [1, 4, 1000])

@@ -23,7 +23,8 @@ from jax.experimental.pallas import tpu as pltpu
 
 import libgdf_tpu_torch
 from libgdf_tpu_torch import probes
-from libgdf_tpu_torch.probes import caps, gather, roll, tilesort, turns
+from libgdf_tpu_torch.probes import (caps, designs, gather, roll, tilesort,
+                                     turns)
 
 BENCH = Path(__file__).resolve().parents[1] / "benchmarks"
 
@@ -718,6 +719,45 @@ def test_dyn_store_window(rows, x00):
     _equal(caps.cap_dyn_store_plain(x), want)
 
 
+@pytest.mark.parametrize("x00", list(range(8)) + [-3, -1, 13, -2 ** 31,
+                                                2 ** 31 - 1])
+def test_loop_counts_is_the_loop(x00):
+    """The closed form the P-14 kernel computes (row k added
+    loop_counts[k] times) is p7's literal loop over rows i & 7, on
+    full-range int32 whose sums wrap; its bound counts the rows read."""
+    n = caps.loop_trips(x00)
+    counts = caps.loop_counts(x00)
+    np.testing.assert_array_equal(
+        counts, np.bincount([i & 7 for i in range(n)], minlength=8))
+    rng = np.random.default_rng(x00 & 0xFFFF)
+    x = rng.integers(-2 ** 31, 2 ** 31, (8, 37)).astype(np.int32)
+    x[0, 0] = x00
+    want = (counts[:, None] * x.astype(np.int64)).sum(0)
+    want = ((want + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(np.int32)
+    _equal(caps.cap_dyn_loop_plain(torch.as_tensor(x)), want[None])
+    assert caps.loop_bytes(x00, 37) == (min(n, 8) + 1) * 37 * 4
+
+
+_T = caps.LOOP_ALL_ROWS_COLS
+
+
+@pytest.mark.parametrize("cols", [1, 128, _T - 1, _T, _T + 1, 1 << 20])
+def test_cap_dyn_loop_launches_the_planned_route(monkeypatch, cols):
+    """Up to LOOP_ALL_ROWS_COLS columns the wrapper asks the kernel to load
+    all 8 rows in one round; wider x only the rows the trip count reads."""
+    calls = []
+    monkeypatch.setattr(caps._common, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(caps._common, "launch",
+                        lambda *args: calls.append(args))
+    x = torch.zeros((8, cols), dtype=torch.int32)
+    out = caps.cap_dyn_loop(x)
+    assert out.shape == (1, cols)
+    (launch,) = calls
+    assert launch[2] == "gdf_probe_cap_dyn_loop" and launch[3] is x
+    assert launch[5:] == (cols, int(cols <= _T))
+    assert caps.loop_plan(cols) == (cols <= _T)
+
+
 def test_cap_carry_and_the_broken_probe(probe_caps, capsys):
     """p6 still raises at its own call (no scratch for its SMEM
     accumulator), so it is held to its assertion, 4 x 8 x 128 = 4096; a
@@ -859,30 +899,51 @@ def test_mains_on_the_cpu(capsys):
 
 def test_mains_need_cuda_unless_asked(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for mod in (tilesort, gather, roll, caps):
+    for mod in (tilesort, gather, roll, caps, designs):
         assert mod.main([]) == 1
     assert capsys.readouterr().out == ""
 
 
+def test_designs_sass_order(monkeypatch):
+    """designs.sass_order keeps one kernel's global loads, compares and
+    stores from a cuobjdump listing, in order, with their guards."""
+    listing = """
+        Function : _Z12cap_dyn_loopILb1ELb1EEvPKiPii
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   ISETP.GE.U32.AND P0, PT, R2, R3, PT ;
+        /*0020*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0030*/              @!P0 LDG.E.CONSTANT R8, desc[UR4][R6.64] ;
+        /*0040*/                   STG.E.128 desc[UR4][R10.64], R4 ;
+        Function : _Z12cap_dyn_loopILb1ELb0EEvPKiPii
+        /*0000*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+"""
+    monkeypatch.setattr(designs._lib, "_nvcc", lambda: "/cuda/bin/nvcc")
+    monkeypatch.setattr(designs.subprocess, "run", lambda *a, **k:
+                        subprocess.CompletedProcess(a, 0, listing, ""))
+    assert designs.sass_order("lib.so", "cap_dyn_loopILb1ELb1E") == \
+        "ISETP LDG @!P0LDG STG"
+
+
 def test_turns_cases_on_the_cpu(monkeypatch, capsys):
     """probes/turns.py's cases, this package standing in for the other on
-    CPU tensors: P-1, the gathers, the rolls, P-8, P-9, P-10, P-11, P-13
-    and H2's and H3's float64 sums, with their bounds (the rolls' by
-    operations, their library call one rotation of the repetitions; P-9's
-    one of its two cumsums; P-8's the 8 rows it reads and the rows it
-    writes; P-11's the rows it writes, read once and written once); at the
-    probes' own shapes each
-    run equals its plain version, the float sums within their bound. The
-    operators of cases W and F agree between the builds. Without CUDA its
-    main exits 1."""
+    CPU tensors: P-1, the gathers, the rolls, P-8 .. P-14 and H2's and
+    H3's float64 sums, with their bounds (the rolls' by operations, their
+    library call one rotation of the repetitions; P-9's one of its two
+    cumsums; P-8's the 8 rows it reads and the rows it writes; P-11's the
+    rows it writes, read once and written once; P-14's the 3 rows its
+    trip count reads on ones and the row it writes); at the probes' own
+    shapes each run equals its plain version, the float sums within their
+    bound, the lane gathers' library call too. The operators of cases W
+    and F agree between the builds. Without CUDA its main exits 1."""
     monkeypatch.setattr(turns, "N_W", 1000)
     this = {"caps": caps, "gather": gather, "roll": roll,
             "tilesort": tilesort, "pkg": libgdf_tpu_torch}
     cases = turns.cases(torch.device("cpu"), this)
     assert [c["key"] for c in cases] == [
-        "P-1", "P-3", "P-3@scale", "P-4", "P-4@scale", "P-5", "P-5@scale",
-        "P-6", "P-7", "P-8", "P-9", "P-10", "P-10@scale", "P-13",
-        "P-13@scale", "P-11", "P-11@scale", "K5a", "K5b"]
+        "P-1", "P-2", "P-2@scale", "P-3", "P-3@scale", "P-4", "P-4@scale",
+        "P-5", "P-5@scale", "P-6", "P-7", "P-8", "P-9", "P-10",
+        "P-10@scale", "P-13", "P-13@scale", "P-11", "P-11@scale", "P-12",
+        "P-14", "P-14@scale", "K5a", "K5b"]
     bound = {c["key"]: c["bound_ms"] * turns.HBM_BYTES_PER_MS for c in cases}
     assert bound["P-1"] == 16 * tilesort.DEFAULT_N
     assert bound["P-10@scale"] == 12 * turns.COMPACT_SCALE_TILES * 256
@@ -891,6 +952,10 @@ def test_turns_cases_on_the_cpu(monkeypatch, capsys):
                      ("P-11@scale", 2 * 4 * 5003 * 128),
                      ("P-13", 4 * 32 * 128 + 4),
                      ("P-13@scale", 4 * 8000 * 128 + 4),
+                     ("P-2", 12 * 1024 * 128),
+                     ("P-2@scale", 12 * turns.SCALE_ROWS * 128),
+                     ("P-12", 12 * 8 * 128), ("P-14", 4 * (3 + 1) * 128),
+                     ("P-14@scale", 4 * (3 + 1) * turns.LOOP_SCALE_COLS),
                      ("K5a", 16 * 1000), ("K5b", 17 * 1000)):
         assert bound[k] == pytest.approx(moved, rel=1e-12)
     by_key = {c["key"]: c for c in cases}
@@ -904,8 +969,10 @@ def test_turns_cases_on_the_cpu(monkeypatch, capsys):
             assert torch.equal(c["library"](), want)
         else:
             assert c["library"] is None
-    for k in ("P-8", "P-11", "P-11@scale"):
+    for k in ("P-8", "P-11", "P-11@scale", "P-14", "P-14@scale"):
         assert by_key[k]["library"] is None
+    for k in ("P-2", "P-12"):
+        assert torch.equal(by_key[k]["library"](), by_key[k]["plain"]())
     cases = list(by_key.values())
     p9 = by_key.pop("P-9")
     assert p9["library_x"] == 2
@@ -952,8 +1019,8 @@ def test_turns_cases_on_the_cpu(monkeypatch, capsys):
 
 def test_probes_import_without_jax():
     code = ("import sys; from libgdf_tpu_torch import probes; "
-            "from libgdf_tpu_torch.probes import caps, gather, roll, "
-            "tilesort; probes.launch_counts(); "
+            "from libgdf_tpu_torch.probes import caps, designs, gather, "
+            "roll, tilesort, turns; probes.launch_counts(); "
             "print('jax' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, timeout=120,
