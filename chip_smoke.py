@@ -87,10 +87,11 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    operator is timed on the host clock ending in a device sync, and each
    result is held to the same code run on CPU tensors.
 7. Drives the distributed path at P = 8 in-process shards on the one card
-   (libgdf_tpu_torch.parallel, one thread per shard), at the shape of
-   benchmarks/dist_bench.py: a 10M-row fact table (Zipf(1.3) keys mod
-   100,000 as int64, a standard-normal float32 value) and a dimension of
-   the 100,000 keys with a float32 weight, distributed over the mesh;
+   (libgdf_tpu_torch.parallel, one thread and one CUDA stream per shard),
+   at the shape of benchmarks/dist_bench.py: a 10M-row fact table
+   (Zipf(1.3) keys mod 100,000 as int64, a standard-normal float32 value)
+   and a dimension of the 100,000 keys with a float32 weight, distributed
+   over the mesh;
    detect_skew over 8 bins; then, each with num_batches=2 and sum + count
    aggregates, three variants of map_shards filter (v > -1) -> join ->
    dist_groupby on k: plain (dist_join with the slot capacity of
@@ -107,6 +108,23 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    collected and sorted by key, is held to the single-table filter_table ->
    join -> groupby on the card; and the same distributed pipeline at 1M
    rows runs on the card and on 8 CPU shards, held shard by shard.
+   It prints torch.cuda.device_count(), then times the path again with
+   every shard on one stream (the caller's) beside a stream per shard, in
+   turns (one, per shard, per shard, one), and profiles each: the device
+   busy share as the sum of device activity over the wall time and as the
+   union of its intervals (they differ where streams overlap). Race
+   checks: the plain variant 20 times on the same rows with each value
+   rounded to a multiple of 1/4 (every sum of those is exact in any
+   order), whose keys, counts and sums must equal the single-table
+   pipeline's bit for bit in every run; the plain variant 5 times on the
+   normal values, keys and counts bit-identical (how many runs also give
+   bit-identical float32 sums is printed: the look-backs add tiles in an
+   order that follows timing); and the race checks of H1, H2 and H3 of
+   step 3 once more while 8 threads, each on a stream of its own, keep
+   launching H1-H3 and checking their results. On a node of C >= 2 cards
+   it runs the path on make_mesh(C), one shard per card, checks that
+   shard s lies on cuda:s and holds every variant to the single-table
+   pipeline; on one card it prints that this phase did not run.
 8. Drives the probe path: the Hopper counterparts of the 14 Pallas cost
    probes under benchmarks/ (libgdf_tpu_torch.probes, P-1 .. P-14), each
    at its probe's shapes and the gathers and the one-hot compaction also at
@@ -154,6 +172,7 @@ per-shard counts, capacities and row order exact; a group's float32 sum
 within 2e-4 of the group's sum of |v|, plus 1e-4 (the shards add their
 partial sums in another order than one table does).
 """
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -163,7 +182,9 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -176,6 +197,7 @@ from libgdf_tpu_torch import probes
 from libgdf_tpu_torch.ops import kernels
 from libgdf_tpu_torch.ops.kernels import _lib
 from libgdf_tpu_torch.ops.sort import radix_encode
+from libgdf_tpu_torch.parallel.mesh import Mesh
 from libgdf_tpu_torch.probes import caps, gather, roll, tilesort
 
 SOURCES = {
@@ -216,6 +238,7 @@ N_CSV, N_CSR, N_SEGMENTS, N_PARTS = 1_000_000, 2_500_000, 10_000, 64
 N_DIST, N_DIST_CPU, DIST_P, DIST_KEYS = 10_000_000, 1_000_000, 8, 100_000
 DIST_AGGS = [("v", "sum", "s"), ("v", "count", "c")]
 DIST_BATCHES = 2
+DIST_REPEATS = 20          # runs of the plain variant in the race check
 DIST_KERNELS = ("compact", "seg_scan")
 # __global__ functions of libgdf_tpu_torch/csrc/*.cu, by wrapper
 # (H2 and H3 are instances of one template)
@@ -280,12 +303,17 @@ def fail(msg):
     raise RuntimeError(msg)
 
 
-def card_line():
+def card_lines():
+    """Each card's name and power limit, as nvidia-smi gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def card_line():
+    return card_lines()[0]
 
 
 # -- comparisons ------------------------------------------------------------
@@ -442,7 +470,9 @@ def _flush_values(rng, n, dtype, dev):
         device=dev).to(dtype)
 
 
-def phase_compact(rng, dev):
+def compact_inputs(rng, dev):
+    """H1's main-path shape: 10M rows of int64, bool, float32 and bool,
+    45% kept."""
     n = N_FACT
     keep = torch.as_tensor(rng.random(n) < 0.45, device=dev)
     arrays = [torch.as_tensor(rng.integers(0, N_DIM, n), device=dev),
@@ -450,6 +480,11 @@ def phase_compact(rng, dev):
               torch.as_tensor(rng.standard_normal(n).astype(np.float32),
                               device=dev),
               torch.as_tensor(rng.random(n) < 0.9, device=dev)]
+    return arrays, keep
+
+
+def phase_compact(rng, dev):
+    arrays, keep = compact_inputs(rng, dev)
     cases = [("main", arrays, keep)]
     for m in EDGE_SIZES:
         for p in (0.0, 0.3, 1.0):
@@ -650,12 +685,13 @@ def phase_seg_scan(rng, dev):
                 **timed["K3 float32 sum"])
 
 
-def check_seg_look_back(rng, dev):
+def check_seg_look_back(rng, dev, profile=True):
     """H3's look-back against races: 10M ones with no flag (the longest
     look-back) sum to exactly 1..n and with a flag every 100,003 rows to
     the restarting ramp, at int32 and int64; 50 int64 segmented sums of one
     input are bit-identical to the first and to the plain version;
-    all-flags `carry` returns its input."""
+    all-flags `carry` returns its input. With `profile`, one call must
+    launch one kernel (not while other streams launch theirs)."""
     every = 100_003
     idx = torch.arange(N_W, dtype=torch.int64, device=dev)
     none = torch.zeros(N_W, dtype=torch.bool, device=dev)
@@ -676,8 +712,8 @@ def check_seg_look_back(rng, dev):
         v = _values(rng, N_W, dtype, dev)
         exact(kernels.seg_scan("carry", ~none, v), v,
               f"all-flags carry {dtype}")
-    _, acts = one_launch_ms(lambda: kernels.seg_scan("sum", f, x),
-                            "seg_scan")
+    acts = one_launch_ms(lambda: kernels.seg_scan("sum", f, x),
+                         "seg_scan")[1] if profile else "not profiled"
     print(f"seg_scan look-back: ones and ramps exact, 50 int64 segmented "
           f"sums bit-identical, all-flags carry exact; device activities "
           f"per call {acts}", flush=True)
@@ -1089,20 +1125,24 @@ def dist_filter(local):
     return ops.filter_table(local, ops.compare_scalar(local["v"], -1.0, "gt"))
 
 
-def run_dist_path(data, device, shards=DIST_P):
-    """The distributed pipeline at `shards` in-process shards on `device`;
-    returns (results, per-variant timings). Each variant is planned in a
-    first pass and timed in a second that ends in a device sync; rows are
-    the fact table's."""
+def sync_mesh(mesh):
+    """Wait for every card the mesh uses."""
+    for d in dict.fromkeys(mesh.devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def dist_setup(data, device, shards):
+    """The distributed path's mesh (`shards` shards on `device`, or with
+    device None spread over the node's cards by make_mesh), its fact table
+    distributed, detect_skew's readout, and the three variants' joins,
+    planned, with the groupby slot capacity of each."""
     fact, dim = data
-    n = fact["k"].shape[0]
-    sync = (lambda: torch.cuda.synchronize(device)) \
-        if device.type == "cuda" else (lambda: None)
     mesh = par.make_mesh(shards, device=device)
-    sf = par.distribute(Table.from_dict(fact, device=device), mesh)
-    sd = par.distribute(Table.from_dict(dim, device=device), mesh)
+    sf = par.distribute(Table.from_dict(fact, device=mesh.device), mesh)
+    sd = par.distribute(Table.from_dict(dim, device=mesh.device), mesh)
     hist, _ = par.detect_skew(mesh, sf, ["k"], num_bins=DIST_P)
-    out = {"skew_max_over_mean": float(hist.max() / max(hist.mean(), 1.0))}
+    info = {"skew_max_over_mean": float(hist.max() / max(hist.mean(), 1.0))}
     slot_join = par.exact_slot_capacity(mesh, [(sf, ["k"]), (sd, ["k"])],
                                         num_batches=DIST_BATCHES)
     filtered = par.map_shards(mesh, dist_filter, sf)
@@ -1111,35 +1151,241 @@ def run_dist_path(data, device, shards=DIST_P):
     joins = {
         "plain": lambda f: par.dist_join(
             mesh, f, sd, ["k"], ["k"], how="inner", slot_capacity=slot_join,
-            out_capacity_per_shard=4 * (sf.capacity // shards),
+            out_capacity_per_shard=4 * (sf.capacity // mesh.size),
             num_batches=DIST_BATCHES),
         "salted": lambda f: par.dist_join_salted(mesh, f, sd, ["k"], ["k"],
                                                  plan=plan),
         "broadcast": lambda f: par.broadcast_join(mesh, f, sd, ["k"], ["k"]),
     }
+    slots = {name: par.exact_groupby_slot_capacity(
+        mesh, join(filtered), ["k"], DIST_AGGS, num_batches=DIST_BATCHES)
+        for name, join in joins.items()}
+    info["plain"] = {"slot_join": slot_join}
+    info["salted"] = {"slot_join": plan.slot_capacity,
+                      "hot_capacity_per_shard": plan.hot_capacity_per_shard,
+                      "hot_bins": int(plan.hot.sum())}
+    return mesh, sf, joins, slots, info
+
+
+def dist_run(mesh, sf, join, slot_gb):
+    """One variant: filter -> join -> dist_groupby."""
+    return par.dist_groupby(mesh, join(par.map_shards(mesh, dist_filter, sf)),
+                            ["k"], DIST_AGGS, slot_capacity=slot_gb,
+                            num_batches=DIST_BATCHES)
+
+
+def run_dist_path(data, device, shards=DIST_P):
+    """The distributed pipeline at `shards` in-process shards on `device`
+    (None: spread over the node's cards); returns (results, per-variant
+    timings). Each variant is planned in a first pass and timed in a
+    second that ends in a sync of every card of the mesh; rows are the
+    fact table's."""
+    n = data[0]["k"].shape[0]
+    mesh, sf, joins, slots, out = dist_setup(data, device, shards)
     times = {}
     for name, join in joins.items():
-        slot_gb = par.exact_groupby_slot_capacity(
-            mesh, join(filtered), ["k"], DIST_AGGS, num_batches=DIST_BATCHES)
-        sync()
+        sync_mesh(mesh)
         mesh.exchange.reset()
         t0 = time.perf_counter()
-        g = par.dist_groupby(mesh, join(par.map_shards(mesh, dist_filter,
-                                                       sf)),
-                             ["k"], DIST_AGGS, slot_capacity=slot_gb,
-                             num_batches=DIST_BATCHES)
-        sync()
+        g = dist_run(mesh, sf, join, slots[name])
+        sync_mesh(mesh)
         secs = time.perf_counter() - t0
         times[f"dist_{name}"] = (n, secs)
-        out[name] = dict(result=g, groups=int(g.total_rows()),
-                         slot_groupby=slot_gb,
-                         exchange_share=mesh.exchange.seconds / shards / secs,
-                         exchange_calls=mesh.exchange.calls)
-    out["plain"]["slot_join"] = slot_join
-    out["salted"]["slot_join"] = plan.slot_capacity
-    out["salted"]["hot_capacity_per_shard"] = plan.hot_capacity_per_shard
-    out["salted"]["hot_bins"] = int(plan.hot.sum())
+        out.setdefault(name, {}).update(
+            result=g, groups=int(g.total_rows()), slot_groupby=slots[name],
+            exchange_share=mesh.exchange.seconds / mesh.size / secs,
+            exchange_calls=mesh.exchange.calls)
     return out, times
+
+
+def one_stream(mesh):
+    """Every shard on the caller's current stream of its card: the
+    in-process mesh without a stream per shard, for comparison."""
+    return [torch.cuda.current_stream(d) for d in mesh.devices]
+
+
+def quarter_data(data):
+    """The distributed path's rows with each value rounded to a multiple of
+    1/4: every partial sum of a group stays under 2^22 (the largest
+    group's sum of |v| is 1.33M at 10M rows), so float32 adds them exactly
+    in any order."""
+    fact, dim = data
+    v = (np.round(fact["v"].astype(np.float64) * 4) / 4).astype(np.float32)
+    return {**fact, "v": v}, dim
+
+
+def dist_repeats(data, dev, runs):
+    """The plain variant `runs` times on one mesh of DIST_P shards on the
+    card: each run's groups collected and sorted by key, as (keys, counts,
+    sums) on the host."""
+    mesh, sf, joins, slots, _ = dist_setup(data, dev, DIST_P)
+    outs = []
+    for _ in range(runs):
+        g = ops.sort_table(par.collect(dist_run(mesh, sf, joins["plain"],
+                                                slots["plain"])), ["k"])
+        outs.append(tuple(g[c].data.cpu() for c in ("k", "c", "s")))
+    return outs
+
+
+def check_dist_races(ddata, dev):
+    """The plain variant DIST_REPEATS times over quarter values, each run
+    bit for bit the single-table pipeline's keys, counts and sums; then 5
+    times over the normal values, keys and counts bit-identical."""
+    qdata = quarter_data(ddata)
+    ref, _ = dist_reference(qdata, dev)
+    want = tuple(ref[c].data.cpu() for c in ("k", "c", "s"))
+    t0 = time.perf_counter()
+    for i, got in enumerate(dist_repeats(qdata, dev, DIST_REPEATS)):
+        for name, g, w in zip(("keys", "counts", "sums"), got, want):
+            exact(g, w, f"dist race check run {i} {name}")
+    print(f"distributed race check: {DIST_REPEATS} runs of the plain variant "
+          f"over quarter values, keys / counts / sums of {want[0].shape[0]} "
+          f"groups equal to the single-table pipeline bit for bit "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    outs = dist_repeats(ddata, dev, 5)
+    same_sums = 0
+    for i, got in enumerate(outs):
+        exact(got[0], outs[0][0], f"dist repeat {i} keys")
+        exact(got[1], outs[0][1], f"dist repeat {i} counts")
+        same_sums += bool(torch.equal(got[2], outs[0][2]))
+    print(f"distributed repeats over the normal values: keys and counts "
+          f"bit-identical in 5 runs, float32 sums bit-identical to the "
+          f"first run's in {same_sums} of 5", flush=True)
+
+
+@contextlib.contextmanager
+def busy_streams(dev, n=DIST_P, rows=1 << 20):
+    """n threads, each on a stream of its own, launching H2, H3 and H1
+    over `rows` rows and checking each result exactly, until the block
+    ends; yields each thread's count of checked rounds. Raises the first
+    thread's error at the end."""
+    stop = threading.Event()
+    rounds = [0] * n
+    errors = []
+
+    def run(i):
+        try:
+            torch.cuda.set_device(dev)
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                idx = torch.arange(rows, dtype=torch.int64, device=dev)
+                ones = torch.ones(rows, dtype=torch.int64, device=dev)
+                flags, keep = idx % 1000 == 0, idx % 3 == i % 3
+                want_keep = idx[keep]
+                while not stop.is_set():
+                    s = kernels.scan("sum", ones)
+                    g = kernels.seg_scan("sum", flags, ones)
+                    (c,), cnt = kernels.compact([idx], keep)
+                    m = want_keep.shape[0]
+                    if not (bool((s == idx + 1).all())
+                            and bool((g == idx % 1000 + 1).all())
+                            and int(cnt) == m
+                            and bool((c[:m] == want_keep).all())):
+                        raise RuntimeError(f"busy stream {i}: round "
+                                           f"{rounds[i]} differs")
+                    rounds[i] += 1
+        except BaseException as e:  # raised in the caller below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True,
+                                name=f"busy-{i}") for i in range(n)]
+    for t in threads:
+        t.start()
+    while not errors and min(rounds) < 1:
+        time.sleep(0.01)
+    try:
+        yield rounds
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        if errors:
+            raise errors[0]
+        if any(t.is_alive() for t in threads):
+            fail("a busy stream's thread did not stop")
+
+
+def dist_rates(times):
+    return " ".join(f"{k}_rows_per_s={rows / secs:.4e}"
+                    for k, (rows, secs) in times.items())
+
+
+STREAM_MODES = {
+    "one stream": lambda: mock.patch.object(Mesh, "shard_streams",
+                                            one_stream),
+    "stream per shard": contextlib.nullcontext,
+}
+
+
+def compare_stream_modes(ddata, dev, card):
+    """The path at DIST_P shards with every shard on one stream and with a
+    stream per shard, in turns (one, per shard, per shard, one), then one
+    profile of each: rows/s, exchange share, device busy share."""
+    for mode in ("one stream", "stream per shard", "stream per shard",
+                 "one stream"):
+        with STREAM_MODES[mode]():
+            res, times = run_dist_path(ddata, dev)
+        print(f"dist {mode}: " + dist_rates(times) + " exchange_share " +
+              "/".join(f"{res[v]['exchange_share']:.4f}"
+                       for v in ("plain", "salted", "broadcast")) +
+              f" ({card})", flush=True)
+    for mode in ("one stream", "stream per shard"):
+        with STREAM_MODES[mode]():
+            wall, busy, own, nk, top, union = profile_op(
+                lambda: run_dist_path(ddata, dev))
+        print(f"profile distributed path, {mode}: wall_us={wall:.1f} "
+              f"device_busy_us={busy:.1f} share={busy / wall:.4f} "
+              f"busy_union_us={union:.1f} union_share={union / wall:.4f} "
+              f"own_kernels_us={own:.1f} kernels={nk} top={top} ({card})",
+              flush=True)
+
+
+def run_across_cards(ddata, ref, absref):
+    """On a node of C >= 2 cards, the path on make_mesh(C), one shard per
+    card: shard s on cuda:s, every variant held to the single-table
+    pipeline (ref, absref from dist_reference on cuda:0), rows/s and
+    exchange share. On one card, a line that says this did not run."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print("distributed path across cards: NOT RUN, this machine has one "
+              "card (torch.cuda.device_count() = 1) and one shard per card "
+              "needs 2 or more", flush=True)
+        return
+    lines = "; ".join(card_lines())
+    for _ in range(2):
+        res, times = run_dist_path(ddata, None, cards)
+    want = [torch.device("cuda", s) for s in range(cards)]
+    for name in ("plain", "salted", "broadcast"):
+        got = [t.device for t in res[name]["result"].shards]
+        if got != want:
+            fail(f"dist across cards {name}: shards on {got}")
+    t0 = time.perf_counter()
+    err, _ = check_dist_path(res, ref, absref, f"dist {cards} cards")
+    print(f"distributed path across {cards} cards, one shard per card "
+          f"(shard s on cuda:s): " + dist_rates(times) + " exchange_share " +
+          "/".join(f"{res[v]['exchange_share']:.4f}"
+                   for v in ("plain", "salted", "broadcast")) +
+          f"; the three variants match the single-table pipeline (sum error "
+          f"{err}; {time.perf_counter() - t0:.1f} s) ({lines})", flush=True)
+
+
+def check_look_backs_beside_busy_streams(dev):
+    """The race checks of H1, H2 and H3 once more, on the caller's stream,
+    while DIST_P other streams keep launching the same kernels."""
+    rng = np.random.default_rng(3)
+    arrays, keep = compact_inputs(rng, dev)
+    t0 = time.perf_counter()
+    with busy_streams(dev) as rounds:
+        before = list(rounds)
+        check_compact_look_back(arrays, keep, dev)
+        check_look_back(rng, dev)
+        check_seg_look_back(rng, dev, profile=False)
+        during = [a - b for a, b in zip(rounds, before)]
+    if min(during) < 1:
+        fail(f"a busy stream made no round during the checks: {during}")
+    print(f"look-back race checks of H1-H3 passed beside {len(during)} busy "
+          f"streams ({sum(during)} checked rounds of H1-H3 on them meanwhile, "
+          f"{min(during)}-{max(during)} a stream; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
 
 
 def dist_reference(data, device):
@@ -1330,11 +1576,32 @@ def check_nvtx_range(dev):
           flush=True)
 
 
+def busy_union_us(prof):
+    """Microseconds in which the device ran at least one activity: the
+    union of the intervals of every device event (kernels, copies,
+    memsets) of a torch.profiler trace, which a sum of their times
+    exceeds where streams overlap."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    total, start, end = 0.0, None, None
+    for a, b in spans:
+        if end is None or a > end:
+            if end is not None:
+                total += end - start
+            start, end = a, b
+        else:
+            end = max(end, b)
+    return total + (end - start if end is not None else 0.0)
+
+
 def profile_op(fn):
     """torch.profiler over one call of fn after a warm-up: (wall us,
     device busy us, device us in this package's kernels, kernel launches,
-    [(kernel, us), ...] top three). The profiler slows the host side, so
-    the busy share is a lower bound."""
+    [(kernel, us), ...] top three, device busy us as the union of device
+    intervals). The profiler slows the host side, so the busy share is a
+    lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1351,7 +1618,7 @@ def profile_op(fn):
     busy = sum(k[1] for k in kern)
     own = sum(k[1] for k in kern if any(o in k[0] for o in OWN_KERNELS))
     return wall, busy, own, sum(k[2] for k in kern), [
-        (k[0][:90], k[1]) for k in kern[:3]]
+        (k[0][:90], k[1]) for k in kern[:3]], busy_union_us(prof)
 
 
 def drive(path, run, data, dev, card):
@@ -2118,7 +2385,7 @@ def main():
     if missing:
         fail(f"analytic path launched no {missing}")
     for name, red, prec, pb, frame in (WINDOWS[1], WINDOWS[4]):
-        wall, busy, own, nk, top = profile_op(lambda: ops.window_function(
+        wall, busy, own, nk, top, _ = profile_op(lambda: ops.window_function(
             W, "v", red, preceding=prec, partition_by=pb, order_by=["o"],
             frame=frame))
         print(f"profile {name}: wall_us={wall:.1f} device_busy_us="
@@ -2163,7 +2430,9 @@ def main():
 
     t0 = time.perf_counter()
     ddata = make_dist_data(N_DIST, 0)
-    print(f"distributed data {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"distributed data {time.perf_counter() - t0:.1f} s; "
+          f"torch.cuda.device_count() = {torch.cuda.device_count()}",
+          flush=True)
     (dgpu, dtimes), dlaunches = drive("distributed", run_dist_path, ddata,
                                       dev, card)
     missing = [k for k in DIST_KERNELS if dlaunches.get(k, 0) == 0]
@@ -2183,25 +2452,22 @@ def main():
                   f"{k}={v}" for k, v in r.items()
                   if k not in ("result", "groups")) + f" ({card})",
               flush=True)
-    # the same 10M rows on one shard, and the device's busy share of the
-    # path at DIST_P shards
+    # the same 10M rows on one shard
     for _ in range(2):
         _, one = run_dist_path(ddata, dev, shards=1)
-    print("dist on one shard: " + " ".join(
-        f"{k}_rows_per_s={rows / secs:.4e}" for k, (rows, secs)
-        in one.items()) + f" ({card})", flush=True)
-    wall, busy, own, nk, top = profile_op(
-        lambda: run_dist_path(ddata, dev))
-    print(f"profile distributed path: wall_us={wall:.1f} device_busy_us="
-          f"{busy:.1f} share={busy / wall:.4f} own_kernels_us={own:.1f} "
-          f"kernels={nk} top={top} ({card})", flush=True)
+    print("dist on one shard: " + dist_rates(one) + f" ({card})", flush=True)
     t0 = time.perf_counter()
     ref, absref = dist_reference(ddata, dev)
     err, _ = check_dist_path(dgpu, ref, absref, "dist 10M")
     print(f"distributed path: the three variants at {N_DIST} rows match the "
           f"single-table pipeline on the card (sum error {err}; "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
-    del dgpu, ref, absref, ddata
+    del dgpu
+    compare_stream_modes(ddata, dev, card)
+    check_dist_races(ddata, dev)
+    check_look_backs_beside_busy_streams(dev)
+    run_across_cards(ddata, ref, absref)
+    del ref, absref, ddata
     t0 = time.perf_counter()
     small = make_dist_data(N_DIST_CPU, 1)
     sgpu, _ = run_dist_path(small, dev)

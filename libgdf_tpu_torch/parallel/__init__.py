@@ -3,7 +3,8 @@ distributed relational operators.
 
 Counterpart of `libgdf_tpu/parallel/`, with the same 23 names, signatures
 and defaults; only the mesh objects are torch's (parallel/mesh.py). The
-shards run in one process, one thread each, on one device, or one per
+shards run in one process, one thread and one CUDA stream each, on one
+card or one card each (`make_mesh(C)` on a node of C cards), or one per
 process of a torch.distributed group; the collectives behind both are in
 parallel/comm.py.
 """

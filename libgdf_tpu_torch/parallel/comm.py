@@ -6,20 +6,27 @@ distributed.py:646-648): the axis size, an all-to-all (of the sizes, then
 of the data), an all-gather, a sum and a max over the shards. Here they
 are methods of a communicator with two backends:
 
-  ThreadComm        P shards in one process, one thread per shard, all on
-                    one device. A collective puts the rank's value into a
-                    shared slot array, waits on a barrier and reads its
-                    peers' values: an all-to-all is a transpose of lists of
-                    tensors, with no copy but the one into the output.
+  ThreadComm        P shards in one process, one thread per shard, each
+                    on a CUDA stream of its own on its shard's device. A
+                    collective puts the rank's value into a shared slot
+                    array, waits on a barrier and reads its peers' values:
+                    an all-to-all is a transpose of lists of tensors, with
+                    no copy but the one into the output (and, from a peer
+                    on another card, the copy to this rank's card).
   ProcessGroupComm  one shard per process over torch.distributed:
                     all_to_all_single with exact split sizes, all_gather
                     and all_reduce (SUM, MAX).
 
 A shard-local body finds its communicator and its rank by axis name
 (`bind`, then the module-level functions below), as a `shard_map` body
-finds its mesh axis. Under ThreadComm every rank runs on the calling
-thread's current stream, one stream for all of them, so a tensor a peer
-wrote is ready for every kernel queued after the barrier.
+finds its mesh axis. Under ThreadComm a rank publishes a tensor with a
+CUDA event recorded on its own stream after its last write, and a reader
+makes its own stream wait for that event (no host sync) before it reads:
+in place where the peer shares its card, after a peer copy to its own
+card where it does not. The reader marks what it reads as in use by the
+stream that reads it (`record_stream`), so that the caching allocator
+does not hand the block back to the producer, when the producer drops
+it, before that read has run. On CPU tensors there are no events.
 
 Each communicator adds the host time its calls take (barrier waits and
 the enqueue of the copies; the copies themselves run on the device) to an
@@ -70,14 +77,17 @@ def _timed(method):
 
 
 class ThreadComm:
-    """P ranks of one process, one thread each. Values pass through a pair
-    of slot arrays used in turn: a rank reaches round r + 2, which reuses
-    round r's array, only after every rank has left round r + 1, so no
-    rank can overwrite a value a peer has yet to read."""
+    """P ranks of one process, one thread each, rank r on `devices[r]`
+    and on that thread's current stream there.
+    Values pass through a pair of slot arrays used in turn: a rank reaches
+    round r + 2, which reuses round r's array, only after every rank has
+    left round r + 1, so no rank can overwrite a value a peer has yet to
+    read. The integer collectives carry Python ints."""
 
-    def __init__(self, size: int, stats: ExchangeStats):
+    def __init__(self, size: int, stats: ExchangeStats, devices: tuple):
         self.size = size
         self.stats = stats
+        self.devices = devices
         self._barrier = threading.Barrier(size, timeout=COLLECTIVE_TIMEOUT)
         self._slots = ([None] * size, [None] * size)
         self._round = [0] * size
@@ -87,19 +97,54 @@ class ThreadComm:
         (a rank that raised will not arrive)."""
         self._barrier.abort()
 
-    def _exchange(self, rank: int, value) -> list:
+    def _exchange(self, rank: int, value, tensors: bool = False) -> list:
+        """Every rank's value, in rank order. With `tensors`, the value
+        holds tensors on this rank's device, and each entry is (value,
+        event): the event recorded on this rank's stream after the
+        value's last write (None off the card)."""
+        if tensors:
+            dev = self.devices[rank]
+            event = None
+            if dev.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+            value = (value, event)
         slots = self._slots[self._round[rank] % 2]
         self._round[rank] += 1
         slots[rank] = value
         self._barrier.wait()
         return list(slots)
 
+    def _take(self, rank: int, x: torch.Tensor, event) -> torch.Tensor:
+        """A peer's tensor x, ready to read on this rank's stream and
+        device: the stream waits for the peer's event, then reads x in
+        place or, from another card, a peer copy of it (which runs on this
+        thread's current stream of x's card)."""
+        if event is None:
+            return x
+        dev = self.devices[rank]
+        stream = torch.cuda.current_stream(dev)
+        stream.wait_event(event)
+        if x.device == dev:
+            x.record_stream(stream)
+            return x
+        y = x.to(dev, non_blocking=True)
+        x.record_stream(torch.cuda.current_stream(x.device))
+        return y
+
+    def _gather(self, rank: int, x) -> list:
+        """Every rank's tensor x, each on this rank's device."""
+        got = self._exchange(rank, x, tensors=True)
+        return [v if p == rank else self._take(rank, v, e)
+                for p, (v, e) in enumerate(got)]
+
     @_timed
     def all_to_all(self, rank, chunks, recv_sizes, out):
         """Send chunks[p] to rank p; write what rank p sent to this rank,
         in rank order, into the prefix of `out`, and return that prefix."""
-        got = self._exchange(rank, chunks)
-        recv = [got[p][rank] for p in range(self.size)]
+        got = self._exchange(rank, chunks, tensors=True)
+        recv = [c[rank] if p == rank else self._take(rank, c[rank], e)
+                for p, (c, e) in enumerate(got)]
         n = sum(recv_sizes)
         if n:
             torch.cat(recv, out=out[:n])
@@ -113,7 +158,7 @@ class ThreadComm:
     @_timed
     def all_gather(self, rank, x):
         """[rank 0's x, rank 1's x, ...]; x has one shape on every rank."""
-        return self._exchange(rank, x)
+        return self._gather(rank, x)
 
     @_timed
     def all_gather_ints(self, rank, value):
@@ -121,17 +166,15 @@ class ThreadComm:
 
     @_timed
     def psum(self, rank, x):
-        got = self._exchange(rank, x)
         if isinstance(x, torch.Tensor):
-            return torch.stack(got).sum(0, dtype=x.dtype)
-        return sum(got)
+            return torch.stack(self._gather(rank, x)).sum(0, dtype=x.dtype)
+        return sum(self._exchange(rank, x))
 
     @_timed
     def pmax(self, rank, x):
-        got = self._exchange(rank, x)
         if isinstance(x, torch.Tensor):
-            return torch.stack(got).amax(0)
-        return max(got)
+            return torch.stack(self._gather(rank, x)).amax(0)
+        return max(self._exchange(rank, x))
 
 
 class ProcessGroupComm:

@@ -23,9 +23,15 @@ dropped rows (shuffle_shard's return_overflow), and collect() and
 total_rows() raise on it. So that every shard raises together under
 torch.distributed, each check first takes the max of its need over the
 shards.
+
+In-process, each shard-local run gives every shard a thread and a CUDA
+stream of its own on its shard's device (mesh.py), so one shard's kernels
+overlap another's and a shard's host syncs wait for its own stream only.
+Live counts and what collect() returns are on the mesh's home device.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from dataclasses import dataclass, replace
 from typing import Callable, Optional, Sequence
@@ -71,10 +77,11 @@ class ShardedTable:
 
     @property
     def table(self) -> Table:
-        """The local slabs one after another, as one Table."""
+        """The local slabs one after another, as one Table on the home
+        device (that of `counts`)."""
         if len(self.shards) == 1:
             return self.shards[0]
-        return table_concat(self.shards)
+        return table_concat([s.to(self.counts.device) for s in self.shards])
 
     def total_rows(self) -> torch.Tensor:
         self._raise_if_overflowed()
@@ -97,24 +104,61 @@ def _local(st: ShardedTable, i: int, rank: int) -> Table:
     return st.shards[i].with_num_rows(st.counts[rank])
 
 
+def _tensors(obj):
+    """The tensors of a shard-local result: tensors, Tables and tuples or
+    lists of them (ints and None hold none)."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, Table):
+        for c in obj.columns:
+            yield c.data
+            if c.valid is not None:
+                yield c.valid
+        if obj.num_rows is not None:
+            yield obj.num_rows
+    elif isinstance(obj, (tuple, list)):
+        for o in obj:
+            yield from _tensors(o)
+
+
 def _spmd(mesh: Mesh, axis_name: str, fn: Callable) -> list:
     """Run fn(i, rank) for every local shard i, each bound to `axis_name`;
     returns the results in shard order. In-process, one thread per shard;
     the first exception aborts the collectives of the others and is
-    raised here, its type unchanged."""
+    raised here, its type unchanged.
+
+    A shard on a card runs on its device and its own stream
+    (mesh.shard_streams()), which first waits for the caller's current
+    stream on every card of the mesh (that made the inputs). When every
+    thread is done, the caller's streams wait for every shard's stream,
+    and each result tensor is marked as in use by the caller's stream of
+    its card, so the allocator does not reuse it for the shard's stream
+    while the caller still reads it."""
     comm_ = mesh.new_comm()
     if mesh.backend != "threads":
         with comm.bind(axis_name, comm_, mesh.local_ranks[0]):
             return [fn(0, mesh.local_ranks[0])]
+    cards = [d for d in dict.fromkeys(mesh.devices) if d.type == "cuda"]
+    streams = mesh.shard_streams()
+    inputs_ready = []
+    for d in cards:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(d))
+        inputs_ready.append(event)
     results = [None] * mesh.size
     errors = []
     lock = threading.Lock()
 
     def run(rank):
         try:
-            if mesh.device.type == "cuda":
-                torch.cuda.set_device(mesh.device)
-            with comm.bind(axis_name, comm_, rank):
+            stream = streams[rank]
+            on_card = contextlib.nullcontext()
+            if stream is not None:
+                torch.cuda.set_device(mesh.devices[rank])
+                for event in inputs_ready:
+                    stream.wait_event(event)
+                on_card = torch.cuda.stream(stream)
+            with on_card, comm.bind(axis_name, comm_, rank):
                 results[rank] = fn(rank, rank)
         except BaseException as e:  # re-raised in the caller below
             with lock:
@@ -128,6 +172,11 @@ def _spmd(mesh: Mesh, axis_name: str, fn: Callable) -> list:
         t.start()
     for t in threads:
         t.join()
+    for d in cards:
+        caller = torch.cuda.current_stream(d)
+        for stream in streams:
+            if stream is not None:
+                caller.wait_stream(stream)
     if errors:
         first = next((e for e in errors
                       if not isinstance(e, threading.BrokenBarrierError)),
@@ -137,11 +186,15 @@ def _spmd(mesh: Mesh, axis_name: str, fn: Callable) -> list:
                 f"a collective over {axis_name!r} waited more than "
                 f"{comm.COLLECTIVE_TIMEOUT} s") from errors[0]
         raise first
+    for t in _tensors(results):
+        if t.device.type == "cuda":
+            t.record_stream(torch.cuda.current_stream(t.device))
     return results
 
 
 def _assemble(mesh: Mesh, outs, overflows) -> ShardedTable:
-    """ShardedTable of the local outputs of a shard-local run."""
+    """ShardedTable of the local outputs of a shard-local run; the counts
+    on the mesh's home device."""
     caps = {t.capacity for t in outs}
     require(len(caps) == 1, GDFStatus.GDF_COLUMN_SIZE_MISMATCH,
             f"shard-local outputs of different capacities {sorted(caps)}")
@@ -149,7 +202,7 @@ def _assemble(mesh: Mesh, outs, overflows) -> ShardedTable:
               torch.tensor(t.capacity, dtype=torch.int32, device=t.device)
               for t in outs]
     if mesh.backend == "threads":
-        counts = torch.stack(counts)
+        counts = torch.stack([c.to(mesh.device) for c in counts])
     else:
         pg = mesh.new_comm()
         counts = torch.cat(pg.all_gather(None, counts[0].reshape(1)))
@@ -185,8 +238,8 @@ def _distribute(table: Table, mesh: Mesh, axis_name: str,
 def distribute(table: Table, mesh: Mesh,
                axis_name: str = DEFAULT_AXIS) -> ShardedTable:
     """Shard a fully-live host/global Table row-wise over the mesh (pads
-    the row count up to a multiple of the mesh size); the slabs go to the
-    mesh's device."""
+    the row count up to a multiple of the mesh size); slab s goes to its
+    shard's device, the counts to the mesh's home device."""
     return _distribute(table, mesh, axis_name, "distribute")
 
 
@@ -199,14 +252,15 @@ def distribute_global(table: Table, mesh: Mesh,
 
 
 def collect(st: ShardedTable) -> Table:
-    """Gather all shards into one compacted Table on their device. Raises
-    if a shard recorded dropped rows, and where this process does not hold
-    every shard."""
+    """Gather all shards into one compacted Table on the home device (that
+    of `counts`), each slab's live rows copied there from its shard's.
+    Raises if a shard recorded dropped rows, and where this process does
+    not hold every shard."""
     st._raise_if_overflowed()
     counts = st.counts.tolist()
     require(len(st.shards) == len(counts), GDFStatus.GDF_INVALID_API_CALL,
             "collect() needs every shard in this process")
-    return table_concat([_slice_rows(s, k)
+    return table_concat([_slice_rows(s, k).to(st.counts.device)
                          for s, k in zip(st.shards, counts)])
 
 
@@ -487,7 +541,10 @@ class SaltedJoinPlan:
         self.left_on = tuple(left_on)
         self.right_on = tuple(right_on)
         self.how = how
-        self.hot = torch.as_tensor(np.asarray(hot), device=mesh.device)
+        # a copy on every device of the mesh: each shard reads its own
+        self._hot = {d: torch.as_tensor(np.asarray(hot), device=d)
+                     for d in dict.fromkeys((mesh.device,) + mesh.devices)}
+        self.hot = self._hot[mesh.device]
         self.slot_capacity = int(slot_capacity)
         self.hot_capacity_per_shard = int(hot_capacity_per_shard)
         self.out_capacity_per_shard = int(out_capacity_per_shard)
@@ -497,13 +554,15 @@ class SaltedJoinPlan:
     def left_salt(self, t: Table) -> torch.Tensor:
         """Hot rows go round-robin by row position, the others to their
         hash's shard (live rows sit at the front of each shard)."""
-        is_hot = self.hot[partition_ids(t, self.left_on, self.num_bins)]
+        is_hot = self._hot[t.device][partition_ids(t, self.left_on,
+                                                    self.num_bins)]
         spread = torch.arange(t.capacity, dtype=torch.int32,
                               device=t.device) % self.mesh.size
         return torch.where(is_hot, spread, 0).to(torch.int32)
 
     def _right_hot(self, rt: Table) -> torch.Tensor:
-        return self.hot[partition_ids(rt, self.right_on, self.num_bins)] \
+        return self._hot[rt.device][partition_ids(rt, self.right_on,
+                                                  self.num_bins)] \
             & rt.live_mask()
 
     def body(self):

@@ -704,6 +704,125 @@ def test_distributed_on_the_card_matches_cpu(dev, op):
                 assert torch.equal(gv, cv), name
 
 
+def _quarter_pipeline(mesh, n, skew=1, seed=23):
+    """filter -> shuffle join -> broadcast join -> groupby (sum, count) on
+    `mesh`, over float32 values that are multiples of 1/4 (every sum of
+    them is exact in any order, so any difference is a lost, doubled or
+    stale row). With skew > 1, shard 0 holds skew x the live rows of each
+    other shard. Returns the ShardedTables (join, broadcast, groupby)."""
+    from dataclasses import replace
+
+    from libgdf_tpu_torch import Table, ops
+    from libgdf_tpu_torch import parallel as par
+    P = mesh.size
+    per = -(-n // (P - 1 + skew))
+    cap = per * skew
+    rng = np.random.default_rng(seed)
+    fact = Table.from_dict(
+        {"k": (rng.zipf(1.3, P * cap) % 500).astype(np.int64),
+         "v": (np.round(rng.standard_normal(P * cap) * 4) / 4)
+         .astype(np.float32)},
+        {"v": rng.random(P * cap) < 0.1}, device=mesh.device)
+    dim = Table.from_dict({"k": np.arange(500, dtype=np.int64),
+                           "w": rng.random(500).astype(np.float32)},
+                          device=mesh.device)
+    sf = par.distribute(fact, mesh)
+    sf = replace(sf, counts=torch.tensor([cap] + [per] * (P - 1),
+                                         dtype=torch.int32,
+                                         device=mesh.device))
+    sd = par.distribute(dim, mesh)
+    f = par.map_shards(mesh, lambda t: ops.filter_table(
+        t, ops.compare_scalar(t["v"], -1.0, "gt")), sf)
+    # room for every fact row on one shard: the Zipf keys' hot rows meet
+    j = par.dist_join(mesh, f, sd, ["k"], ["k"], num_batches=2,
+                      out_capacity_per_shard=P * cap)
+    b = par.broadcast_join(mesh, f, sd, ["k"], ["k"])
+    g = par.dist_groupby(mesh, j, ["k"], [("v", "sum", "s"),
+                                          ("v", "count", "c")],
+                         num_batches=2)
+    return j, b, g
+
+
+def _same_shards(got, want, what):
+    """Capacity, per-shard counts, and each shard's live rows: null masks
+    and data bit for bit."""
+    assert got.capacity == want.capacity, what
+    counts = want.counts.cpu().tolist()
+    assert got.counts.cpu().tolist() == counts, what
+    for s, (gs, ws, k) in enumerate(zip(got.shards, want.shards, counts)):
+        for name in ws.names:
+            gc, wc = gs[name], ws[name]
+            g_ok = gc.valid_or_true()[:k].cpu()
+            w_ok = wc.valid_or_true()[:k].cpu()
+            assert torch.equal(g_ok, w_ok), (what, s, name)
+            assert torch.equal(gc.data[:k].cpu()[w_ok],
+                               wc.data[:k].cpu()[w_ok]), (what, s, name)
+
+
+def _one_stream(mesh):
+    """Every shard on the caller's current stream of its card: the
+    in-process mesh without a stream per shard."""
+    return [torch.cuda.current_stream(d) for d in mesh.devices]
+
+
+def test_per_shard_streams_match_one_stream(dev, monkeypatch):
+    """P = 8 shards on one card, each on its own stream, 20 times: keys,
+    counts and sums bit-identical to the same pipeline with every shard on
+    one stream, and to 8 shards on the CPU."""
+    from libgdf_tpu_torch import parallel as par
+    from libgdf_tpu_torch.parallel.mesh import Mesh
+    mesh = par.make_mesh(8, device=dev)
+    streams = mesh.shard_streams()
+    assert len({s.cuda_stream for s in streams}) == 8
+    with monkeypatch.context() as m:
+        m.setattr(Mesh, "shard_streams", _one_stream)
+        want = _quarter_pipeline(par.make_mesh(8, device=dev), 200_000)
+    cpu = _quarter_pipeline(par.make_mesh(8, device="cpu"), 200_000)
+    for w, c, what in zip(want, cpu, ("join", "broadcast", "groupby")):
+        _same_shards(w, c, f"one stream vs cpu {what}")
+    for i in range(20):
+        got = _quarter_pipeline(mesh, 200_000)
+        for g, w, what in zip(got, want, ("join", "broadcast", "groupby")):
+            _same_shards(g, w, f"repeat {i} {what}")
+
+
+def test_forced_skew_peers_read_a_busy_producer(dev):
+    """Shard 0 holds 50x the rows of each other shard, so its kernels are
+    still running when its peers read what it sent: 5 runs equal the CPU
+    run shard by shard, bit for bit."""
+    from libgdf_tpu_torch import parallel as par
+    mesh = par.make_mesh(8, device=dev)
+    want = _quarter_pipeline(par.make_mesh(8, device="cpu"), 600_000,
+                             skew=50)
+    for i in range(5):
+        got = _quarter_pipeline(mesh, 600_000, skew=50)
+        for g, w, what in zip(got, want, ("join", "broadcast", "groupby")):
+            _same_shards(g, w, f"skewed run {i} {what}")
+
+
+@pytest.mark.parametrize("per_card", [1, 2])
+def test_one_shard_per_card(dev, per_card):
+    """make_mesh(C) on a node of C >= 2 cards: shard s on cuda:s (and with
+    2C shards, shard s on cuda:(s % C)), the pipeline equal to the CPU run
+    of as many shards, shard by shard; collect() on cuda:0."""
+    from libgdf_tpu_torch import parallel as par
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip(f"one shard per card needs 2 cards or more; this "
+                    f"machine has {cards}")
+    P = cards * per_card
+    mesh = par.make_mesh(None if per_card == 1 else P)
+    assert mesh.devices == tuple(torch.device("cuda", s % cards)
+                                 for s in range(P))
+    got = _quarter_pipeline(mesh, 300_000)
+    want = _quarter_pipeline(par.make_mesh(P, device="cpu"), 300_000)
+    for g, w, what in zip(got, want, ("join", "broadcast", "groupby")):
+        _same_shards(g, w, what)
+        assert [s.device for s in g.shards] == list(mesh.devices)
+        assert g.counts.device == torch.device("cuda", 0)
+        assert par.collect(g).device == torch.device("cuda", 0)
+
+
 # -- the cost probes (libgdf_tpu_torch/probes/), P-1 .. P-14 -----------------
 
 def _same(got, want):
