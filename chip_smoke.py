@@ -125,6 +125,23 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    it runs the path on make_mesh(C), one shard per card, checks that
    shard s lies on cuda:s and holds every variant to the single-table
    pipeline; on one card it prints that this phase did not run.
+   Then the same path across processes (libgdf_tpu_torch.parallel under a
+   torch.distributed group, cpu:gloo,cuda:nccl): W worker processes of
+   this file (--procs-worker), L shards each, make_mesh(W * L), shard s
+   on cuda:(s % C); each builds the tables on the CPU from the seed and
+   keeps its slabs (distribute_global), plans and runs the three
+   variants once, then times each between barriers on rank 0's clock
+   with the launch counts reset just before. Layouts: W = 1, L = 8 on one
+   card (a one-rank group, so every collective goes through NCCL); on a
+   node of C >= 2 cards also W = C, L = 1, and of C >= 4 cards W = 2,
+   L = C / 2 (the layouts a node lacks print that they did not run).
+   Rank 0 gathers every shard's groups; every variant is held to the
+   single-table pipeline, and at W = 1, L = 8 shard by shard to the
+   in-process P = 8 run (keys, per-shard counts exact, sums within the
+   bound). It prints rows/s, each process's exchange share, peak device
+   memory and launches; compact, scan and seg_scan must launch in every
+   process. A worker that fails or outlives 600 s fails the smoke, and
+   the others are killed.
 8. Drives the probe path: the Hopper counterparts of the 14 Pallas cost
    probes under benchmarks/ (libgdf_tpu_torch.probes, P-1 .. P-14), each
    at its probe's shapes and the gathers and the one-hot compaction also at
@@ -197,6 +214,7 @@ from libgdf_tpu_torch import probes
 from libgdf_tpu_torch.ops import kernels
 from libgdf_tpu_torch.ops.kernels import _lib
 from libgdf_tpu_torch.ops.sort import radix_encode
+from libgdf_tpu_torch.parallel import procs as procs_mod
 from libgdf_tpu_torch.parallel.mesh import Mesh
 from libgdf_tpu_torch.probes import caps, gather, roll, tilesort
 
@@ -1135,12 +1153,18 @@ def sync_mesh(mesh):
 def dist_setup(data, device, shards):
     """The distributed path's mesh (`shards` shards on `device`, or with
     device None spread over the node's cards by make_mesh), its fact table
-    distributed, detect_skew's readout, and the three variants' joins,
-    planned, with the groupby slot capacity of each."""
+    distributed, then dist_plan's joins, slots and readouts."""
     fact, dim = data
     mesh = par.make_mesh(shards, device=device)
     sf = par.distribute(Table.from_dict(fact, device=mesh.device), mesh)
     sd = par.distribute(Table.from_dict(dim, device=mesh.device), mesh)
+    return (mesh, sf) + dist_plan(mesh, sf, sd)
+
+
+def dist_plan(mesh, sf, sd):
+    """detect_skew's readout and the three variants' joins over the
+    distributed fact and dimension tables, planned, with the groupby slot
+    capacity of each."""
     hist, _ = par.detect_skew(mesh, sf, ["k"], num_bins=DIST_P)
     info = {"skew_max_over_mean": float(hist.max() / max(hist.mean(), 1.0))}
     slot_join = par.exact_slot_capacity(mesh, [(sf, ["k"]), (sd, ["k"])],
@@ -1164,7 +1188,7 @@ def dist_setup(data, device, shards):
     info["salted"] = {"slot_join": plan.slot_capacity,
                       "hot_capacity_per_shard": plan.hot_capacity_per_shard,
                       "hot_bins": int(plan.hot.sum())}
-    return mesh, sf, joins, slots, info
+    return joins, slots, info
 
 
 def dist_run(mesh, sf, join, slot_gb):
@@ -1366,6 +1390,229 @@ def run_across_cards(ddata, ref, absref):
                    for v in ("plain", "salted", "broadcast")) +
           f"; the three variants match the single-table pipeline (sum error "
           f"{err}; {time.perf_counter() - t0:.1f} s) ({lines})", flush=True)
+
+
+# -- the distributed path across processes ----------------------------------
+
+PROC_KERNELS = ("compact", "scan", "seg_scan")
+PROC_TIMEOUT = 600          # seconds a worker may take
+VARIANTS = ("plain", "salted", "broadcast")
+
+
+def proc_layouts(cards):
+    """(processes W, shards a process L) that a node of `cards` cards
+    holds, and the lines of those it does not: W = 1, L = 8 on one card;
+    one process a card; 2 processes of cards / 2, the JAX package's
+    layout (tests/mp_worker.py). Each process's local shard 0 sits on a
+    card of its own (NCCL takes one rank a card)."""
+    run, skipped = [(1, DIST_P)], []
+    if cards >= 2:
+        run.append((cards, 1))
+    else:
+        skipped.append("W = C, L = 1 (one process a card) needs 2 cards or "
+                       "more")
+    if cards >= 4:
+        run.append((2, cards // 2))
+    else:
+        skipped.append("W = 2, L = C / 2 needs 4 cards or more")
+    return run, skipped
+
+
+def shard_rows(st, local_ranks):
+    """{global shard: (k, s, c)} of the shards `local_ranks` that this
+    process holds, live rows as numpy."""
+    out = {}
+    for i, s in enumerate(local_ranks):
+        t = st.shards[i].with_num_rows(st.counts[s]).compact()
+        out[s] = tuple(t[c].data.cpu().numpy() for c in ("k", "s", "c"))
+    return out
+
+
+def inproc_rows(res):
+    """{variant: [(k, s, c) of each shard]} of an in-process run."""
+    out = {}
+    for name in VARIANTS:
+        st = res[name]["result"]
+        by_shard = shard_rows(st, range(len(st.shards)))
+        out[name] = [by_shard[s] for s in range(len(st.shards))]
+    return out
+
+
+def procs_worker(coord, procs, rank, local, out):
+    """One of `procs` processes of the distributed path, `local` shards
+    each (parallel/procs.py::join): builds the 10M-row tables on the host
+    from the seed and keeps its slabs (distribute_global), plans the three
+    variants, runs them once, then times each between barriers on rank
+    0's clock with the launch counts reset just before. Rank 0 gathers
+    every shard's live (k, s, c) rows (gather_object) into OUT/rows.npz;
+    each process writes OUT/stats.<rank>.json."""
+    import torch.distributed as dist
+    from libgdf_tpu_torch.parallel.distributed import distribute_global
+
+    mesh = procs_mod.join(coord, procs, rank, local)
+    cards = torch.cuda.device_count()
+    want = [torch.device("cuda", s % cards) for s in mesh.local_ranks]
+    if list(mesh.devices) != want:
+        fail(f"process {rank}: shards on {mesh.devices}, not {want}")
+    fact, dim = make_dist_data(N_DIST, 0)
+    n = fact["k"].shape[0]
+    t0 = time.perf_counter()
+    sf = distribute_global(Table.from_dict(fact, device="cpu"), mesh)
+    sd = distribute_global(Table.from_dict(dim, device="cpu"), mesh)
+    joins, slots, info = dist_plan(mesh, sf, sd)
+    for name in VARIANTS:                                 # warm-up
+        dist_run(mesh, sf, joins[name], slots[name])
+    setup_s = time.perf_counter() - t0
+    for d in dict.fromkeys(mesh.devices):
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    kernels.reset_launch_counts()
+    stats = {"rank": rank, "devices": [str(d) for d in mesh.devices],
+             "setup_s": setup_s, "variants": {}}
+    rows = {}
+    for name in VARIANTS:
+        sync_mesh(mesh)
+        procs_mod.host_barrier()
+        mesh.exchange.reset()
+        t0 = time.perf_counter()
+        g = dist_run(mesh, sf, joins[name], slots[name])
+        sync_mesh(mesh)
+        procs_mod.host_barrier()
+        secs = time.perf_counter() - t0
+        stats["variants"][name] = {
+            "rows": n, "seconds": secs, "groups": int(g.total_rows()),
+            "exchange_share": mesh.exchange.seconds / local / secs,
+            "exchange_calls": mesh.exchange.calls, **info.get(name, {})}
+        rows[name] = shard_rows(g, mesh.local_ranks)
+    stats["launches"] = kernels.launch_counts()
+    stats["peak_gib"] = {str(d): torch.cuda.max_memory_allocated(d) / 2**30
+                         for d in dict.fromkeys(mesh.devices)}
+    gathered = [None] * procs if rank == 0 else None
+    dist.gather_object(rows, gathered, dst=0)
+    if rank == 0:
+        np.savez(os.path.join(out, "rows.npz"), **{
+            f"{name}.{s}.{c}": arr for part in gathered
+            for name, by_shard in part.items()
+            for s, cols in by_shard.items()
+            for c, arr in zip(("k", "s", "c"), cols)})
+    with open(os.path.join(out, f"stats.{rank}.json"), "w") as f:
+        json.dump(stats, f)
+    procs_mod.host_barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def start_procs(procs, local, out):
+    """Run the path's `procs` workers (this file, --procs-worker) through
+    parallel/procs.py::start; a worker that exits non-zero or outlives
+    PROC_TIMEOUT fails the smoke, and the others are killed. Returns each
+    worker's stats, rank by rank."""
+    try:
+        procs_mod.start(lambda coord, r: [
+            sys.executable, os.path.abspath(__file__), "--procs-worker",
+            coord, str(procs), str(r), str(local), out], procs, PROC_TIMEOUT)
+    except RuntimeError as e:
+        fail(f"the workers of {procs} x {local}: {e}")
+    stats = []
+    for r in range(procs):
+        with open(os.path.join(out, f"stats.{r}.json")) as f:
+            stats.append(json.load(f))
+    return stats
+
+
+def proc_rows(out, size):
+    """{variant: [(k, s, c) of each global shard]} that rank 0 saved."""
+    z = np.load(os.path.join(out, "rows.npz"))
+    return {name: [tuple(z[f"{name}.{s}.{c}"] for c in ("k", "s", "c"))
+                   for s in range(size)]
+            for name in VARIANTS}
+
+
+def rows_table(cols):
+    return Table.from_dict(dict(zip(("k", "s", "c"), cols)), device="cpu")
+
+
+def check_proc_rows(got, ref, abs_by_key, what, inproc=None):
+    """Every variant's shards, together and sorted by key, against the
+    single-table pipeline; with `inproc` ({variant: [(k, s, c)]} of the
+    in-process run of as many shards), also shard by shard. Returns the
+    largest sum error."""
+    err = 0.0
+    for name in VARIANTS:
+        t = ops.sort_table(rows_table([np.concatenate(c) for c in zip(
+            *got[name])]), ["k"])
+        if t.capacity != ref.capacity:
+            fail(f"{what} {name}: {t.capacity} groups vs {ref.capacity}")
+        err = max(err, check_dist_against(t, ref, abs_by_key,
+                                          f"{what} {name}"))
+        if inproc is None:
+            continue
+        if [c[0].shape[0] for c in got[name]] != \
+                [c[0].shape[0] for c in inproc[name]]:
+            fail(f"{what} {name}: per-shard counts differ from the "
+                 f"in-process run")
+        for s, (g, w) in enumerate(zip(got[name], inproc[name])):
+            check_dist_against(rows_table(g), rows_table(w), abs_by_key,
+                               f"{what} {name} shard {s}")
+    return err
+
+
+def run_processes(ref, absref, inproc):
+    """The distributed path across processes on this node's cards, for
+    each layout of proc_layouts: rank 0's rows/s a variant between
+    barriers, each process's exchange share, peak memory and launches
+    (compact, scan and seg_scan must launch in every process); every
+    variant held to the single-table pipeline (ref, absref), and W = 1,
+    L = 8 also shard by shard to the in-process P = 8 run (inproc).
+    Returns the launches summed over every process of every layout."""
+    kernels.build()                 # the workers only load the library
+    cards = torch.cuda.device_count()
+    layouts, skipped = proc_layouts(cards)
+    for line in skipped:
+        print(f"distributed path across processes: {line}: NOT RUN, this "
+              f"machine has {cards} card(s)", flush=True)
+    abs_by_key = torch.zeros(DIST_KEYS, dtype=torch.float64)
+    abs_by_key[ref["k"].data.cpu().long()] = absref.cpu()
+    torch.cuda.empty_cache()
+    lines = "; ".join(card_lines())
+    total = {}
+    for procs, local in layouts:
+        what = f"W = {procs}, L = {local}"
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as out:
+            stats = start_procs(procs, local, out)
+            got = proc_rows(out, procs * local)
+        wall = time.perf_counter() - t0
+        for st in stats:
+            missing = [k for k in PROC_KERNELS if st["launches"][k] == 0]
+            if missing:
+                fail(f"{what}: process {st['rank']} launched no {missing}")
+            for k, v in st["launches"].items():
+                total[k] = total.get(k, 0) + v
+        err = check_proc_rows(got, ref, abs_by_key, what,
+                              inproc if (procs, local) == (1, DIST_P)
+                              else None)
+        for name in VARIANTS:
+            r = stats[0]["variants"][name]
+            print(f"dist processes {what} {name}: rows={r['rows']} "
+                  f"seconds={r['seconds']:.6f} rows_per_s="
+                  f"{r['rows'] / r['seconds']:.4e} groups={r['groups']} "
+                  f"exchange_share " + "/".join(
+                      f"{st['variants'][name]['exchange_share']:.4f}"
+                      for st in stats) + f" ({lines})", flush=True)
+        for st in stats:
+            print(f"dist processes {what} process {st['rank']}: shards on "
+                  f"{st['devices']} peak_gib " + " ".join(
+                      f"{d}={g:.2f}" for d, g in st["peak_gib"].items()) +
+                  " launches " + " ".join(
+                      f"{k}={st['launches'][k]}" for k in PROC_KERNELS) +
+                  f" setup_s={st['setup_s']:.1f}", flush=True)
+        print(f"distributed path across processes, {what}: every variant "
+              f"matches the single-table pipeline (sum error {err})" +
+              (" and the in-process P = 8 run shard by shard"
+               if (procs, local) == (1, DIST_P) else "") +
+              f"; {wall:.1f} s with the workers' start", flush=True)
+    return total
 
 
 def check_look_backs_beside_busy_streams(dev):
@@ -2331,7 +2578,11 @@ def tile_verdict(case, st, card):
           f"({card})", flush=True)
 
 
-def main():
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--procs-worker"]:
+        coord, procs, rank, local, out = argv[1:]
+        return procs_worker(coord, int(procs), int(rank), int(local), out)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -2462,12 +2713,15 @@ def main():
     print(f"distributed path: the three variants at {N_DIST} rows match the "
           f"single-table pipeline on the card (sum error {err}; "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    inproc = inproc_rows(dgpu)
     del dgpu
     compare_stream_modes(ddata, dev, card)
     check_dist_races(ddata, dev)
     check_look_backs_beside_busy_streams(dev)
     run_across_cards(ddata, ref, absref)
-    del ref, absref, ddata
+    del ddata
+    glaunches = run_processes(ref, absref, inproc)
+    del ref, absref, inproc
     t0 = time.perf_counter()
     small = make_dist_data(N_DIST_CPU, 1)
     sgpu, _ = run_dist_path(small, dev)
@@ -2489,7 +2743,7 @@ def main():
                                          **dtimes}.items()}
     print(json.dumps({"pipeline": pipeline, "card": card}), flush=True)
     paths = {"main": launches, "analytic": alaunches, "abi": blaunches,
-             "distributed": dlaunches}
+             "distributed": dlaunches, "processes": glaunches}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],

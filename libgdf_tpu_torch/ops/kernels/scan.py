@@ -19,8 +19,10 @@ loads it, the plain version flushes the input and then scans.
 Both are one pass with decoupled look-back: one memset of a scratch buffer
 (the tile counter and descriptors) and one launch.
 
-Value dtypes: int32, int64, float32, float64. Integer sums wrap; float
-max/min propagate NaN. Each wrapper counts its launches in total
+Value dtypes: int32, int64, float32, float64; int8 and int16 on the card
+run as int32 and come back narrowed (a sum wraps modulo 2^32 there, and
+2^16 divides 2^32, so it wraps as the narrow sum does). Integer sums
+wrap; float max/min propagate NaN. Each wrapper counts its launches in total
 (`launches`) and per value dtype (`launches_by_dtype`, keyed "int64" and
 so on): H2 at int64 and float64 is what replaces the TPU's K4a and K5a.
 """
@@ -33,6 +35,7 @@ from . import _lib
 
 _DTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
            torch.float64: 3}
+_NARROW = (torch.int8, torch.int16)
 _KINDS = {"sum": 0, "max": 1, "min": 2, "carry": 3}
 _OPS = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
 
@@ -92,6 +95,8 @@ def scan(kind: str, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
         raise ValueError("scan: 1-D tensors only")
     if x.device.type == "cpu":
         return scan_plain(kind, x, reverse)
+    if x.dtype in _NARROW:
+        return scan(kind, x.to(torch.int32), reverse).to(x.dtype)
     dev, out = _prepare("scan", x)
     n = x.shape[0]
     if n == 0:
@@ -123,6 +128,8 @@ def seg_scan(kind: str, flags: torch.Tensor, vals: torch.Tensor):
         raise ValueError("seg_scan: flags and vals must be 1-D, same length")
     if vals.device.type == "cpu" and flags.device.type == "cpu":
         return seg_scan_plain(kind, flags, vals)
+    if vals.dtype in _NARROW:
+        return seg_scan(kind, flags, vals.to(torch.int32)).to(vals.dtype)
     if flags.dtype != torch.bool:
         flags = flags != 0
     dev, out = _prepare("seg_scan", vals, flags)

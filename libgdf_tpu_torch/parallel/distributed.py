@@ -24,7 +24,7 @@ total_rows() raise on it. So that every shard raises together under
 torch.distributed, each check first takes the max of its need over the
 shards.
 
-In-process, each shard-local run gives every shard a thread and a CUDA
+Each shard-local run gives every local shard a thread and a CUDA
 stream of its own on its shard's device (mesh.py), so one shard's kernels
 overlap another's and a shard's host syncs wait for its own stream only.
 Live counts and what collect() returns are on the mesh's home device.
@@ -58,7 +58,7 @@ from .shuffle import (all_gather_table, dest_sizes,
 @dataclass(frozen=True)
 class ShardedTable:
     """A mesh-global table: `shards` are the slabs this process holds (all
-    P of them in-process, its own under torch.distributed), Tables of one
+    P of them in-process, its L under torch.distributed), Tables of one
     capacity with num_rows None; `counts` (int32[P], on the mesh's device)
     holds every shard's live row count.
 
@@ -122,10 +122,11 @@ def _tensors(obj):
 
 
 def _spmd(mesh: Mesh, axis_name: str, fn: Callable) -> list:
-    """Run fn(i, rank) for every local shard i, each bound to `axis_name`;
-    returns the results in shard order. In-process, one thread per shard;
-    the first exception aborts the collectives of the others and is
-    raised here, its type unchanged.
+    """Run fn(i, rank) for every local shard i (global shard `rank`), each
+    bound to `axis_name`; returns the results in local shard order. One
+    thread per local shard, under either backend; the first exception
+    aborts the collectives of the other local shards and is raised here,
+    its type unchanged.
 
     A shard on a card runs on its device and its own stream
     (mesh.shard_streams()), which first waits for the caller's current
@@ -135,9 +136,6 @@ def _spmd(mesh: Mesh, axis_name: str, fn: Callable) -> list:
     its card, so the allocator does not reuse it for the shard's stream
     while the caller still reads it."""
     comm_ = mesh.new_comm()
-    if mesh.backend != "threads":
-        with comm.bind(axis_name, comm_, mesh.local_ranks[0]):
-            return [fn(0, mesh.local_ranks[0])]
     cards = [d for d in dict.fromkeys(mesh.devices) if d.type == "cuda"]
     streams = mesh.shard_streams()
     inputs_ready = []
@@ -145,29 +143,29 @@ def _spmd(mesh: Mesh, axis_name: str, fn: Callable) -> list:
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(d))
         inputs_ready.append(event)
-    results = [None] * mesh.size
+    results = [None] * len(mesh.local_ranks)
     errors = []
     lock = threading.Lock()
 
-    def run(rank):
+    def run(i, rank):
         try:
-            stream = streams[rank]
+            stream = streams[i]
             on_card = contextlib.nullcontext()
             if stream is not None:
-                torch.cuda.set_device(mesh.devices[rank])
+                torch.cuda.set_device(mesh.devices[i])
                 for event in inputs_ready:
                     stream.wait_event(event)
                 on_card = torch.cuda.stream(stream)
             with on_card, comm.bind(axis_name, comm_, rank):
-                results[rank] = fn(rank, rank)
+                results[i] = fn(i, rank)
         except BaseException as e:  # re-raised in the caller below
             with lock:
                 errors.append(e)
             comm_.abort()
 
-    threads = [threading.Thread(target=run, args=(r,), daemon=True,
+    threads = [threading.Thread(target=run, args=(i, r), daemon=True,
                                 name=f"shard-{r}")
-               for r in range(mesh.size)]
+               for i, r in enumerate(mesh.local_ranks)]
     for t in threads:
         t.start()
     for t in threads:
@@ -194,19 +192,21 @@ def _spmd(mesh: Mesh, axis_name: str, fn: Callable) -> list:
 
 def _assemble(mesh: Mesh, outs, overflows) -> ShardedTable:
     """ShardedTable of the local outputs of a shard-local run; the counts
-    on the mesh's home device."""
+    and overflow flags of every shard of the mesh (each process's local
+    ones gathered, in global shard order), the counts on the mesh's home
+    device."""
     caps = {t.capacity for t in outs}
     require(len(caps) == 1, GDFStatus.GDF_COLUMN_SIZE_MISMATCH,
             f"shard-local outputs of different capacities {sorted(caps)}")
     counts = [t.num_rows if t.num_rows is not None else
               torch.tensor(t.capacity, dtype=torch.int32, device=t.device)
               for t in outs]
-    if mesh.backend == "threads":
-        counts = torch.stack([c.to(mesh.device) for c in counts])
-    else:
+    counts = torch.stack([c.to(mesh.device) for c in counts])
+    if mesh.backend == "process_group":
         pg = mesh.new_comm()
-        counts = torch.cat(pg.all_gather(None, counts[0].reshape(1)))
-        overflows = pg.all_gather_ints(None, overflows[0])
+        counts = pg.gather_processes(counts).reshape(-1)
+        overflows = [v for row in pg.gather_process_ints(overflows)
+                     for v in row]
     return ShardedTable(shards=tuple(t.with_num_rows(None) for t in outs),
                         counts=counts,
                         overflow=torch.tensor(overflows, dtype=torch.int32))

@@ -12,18 +12,24 @@ two backends (parallel/comm.py):
                  jax.devices(); or every shard on one given device (P
                  shards on one H100, as the JAX tests put 8 virtual
                  devices on one CPU);
-  process_group  one shard per process of an initialized torch.distributed
-                 group (init_distributed), each on its own device.
+  process_group  W processes of an initialized torch.distributed group
+                 (init_distributed), L shards in each, a thread and a
+                 stream a shard as above: global shard s = rank * L + i
+                 (process by process, as jax.devices() runs), on
+                 cuda:(s % C) of the C cards the process sees.
 """
 from __future__ import annotations
 
+import datetime
+import socket
 from dataclasses import dataclass, field, replace
 
 import torch
 
 from ..core.column import host_data_device
 from ..core.errors import GDFStatus, require
-from .comm import ExchangeStats, ProcessGroupComm, ThreadComm
+from .comm import (COLLECTIVE_TIMEOUT, ExchangeStats, ProcessGroupComm,
+                   ThreadComm)
 
 DEFAULT_AXIS = "shards"
 # Shards of an in-process mesh unless the caller says: the JAX tests' 8
@@ -34,12 +40,12 @@ IN_PROCESS_SHARDS = 8
 @dataclass(frozen=True)
 class Mesh:
     """P row shards. `local_ranks` are the shards this process holds (all
-    of them under `threads`, its own rank under `process_group`);
-    `devices` holds one device per local shard (by default `device` for
-    each). `device` is the home device: shard 0's, or this process's
-    rank's, where the live counts of a ShardedTable and what collect()
-    returns live. `exchange` sums the host time spent in collectives.
-    Raises if a device is a card this node does not have."""
+    of them under `threads`, its L shards rank * L .. rank * L + L - 1
+    under `process_group`); `devices` holds one device per local shard
+    (by default `device` for each). `device` is the home device: local
+    shard 0's, where the live counts of a ShardedTable and what collect()
+    returns live. `exchange` sums the host time the local shards spend in
+    collectives. Raises if a device is a card this node does not have."""
 
     size: int
     device: torch.device
@@ -68,7 +74,8 @@ class Mesh:
         """A communicator for one shard-local run over this mesh."""
         if self.backend == "threads":
             return ThreadComm(self.size, self.exchange, self.devices)
-        return ProcessGroupComm(self.device, self.exchange)
+        return ProcessGroupComm(self.exchange, self.devices,
+                                self.local_ranks[0])
 
     def shard_streams(self) -> list:
         """One CUDA stream per local shard on a card (None for a shard on
@@ -102,6 +109,27 @@ def placement(num_devices: int | None, num_cards: int) -> tuple:
     return tuple(torch.device("cuda", s % num_cards) for s in range(size))
 
 
+def _card_id(device: torch.device) -> tuple:
+    """(host name, card UUID) of a card: the same card in two processes,
+    whatever cards each of them sees."""
+    return (socket.gethostname(),
+            str(torch.cuda.get_device_properties(device).uuid))
+
+
+def _require_own_leader_cards(dist, leader: torch.device) -> None:
+    """Every process raises unless each process's local shard 0, the one
+    that calls the group, has a card of its own: NCCL takes one rank a
+    card, and two on one card fail inside NCCL. A collective of the
+    group's CPU half (an object all-gather)."""
+    ids = [None] * dist.get_world_size()
+    dist.all_gather_object(ids, _card_id(leader))
+    shared = sorted({r for r, i in enumerate(ids) if ids.count(i) > 1})
+    require(not shared, GDFStatus.GDF_INVALID_API_CALL,
+            f"the local shard 0 of processes {shared} share a card "
+            f"(NCCL takes one process a card): give each process a card of "
+            f"its own for its first shard")
+
+
 def _process_group():
     import torch.distributed as dist
     return dist if dist.is_available() and dist.is_initialized() else None
@@ -112,22 +140,39 @@ def make_mesh(num_devices: int | None = None,
     """A mesh of `num_devices` row shards. (`axis_name` stays for the JAX
     package's signature: each shard-local run names its axis itself.)
 
-    With a torch.distributed group initialized: one shard per rank (the
-    group's size; `num_devices` must be None or equal it), on `device` or
-    else the card of index rank % device count. Otherwise every shard in
-    this process: all `num_devices` (default IN_PROCESS_SHARDS) on
-    `device` where it is given, else spread over the node's cards by
-    `placement` (make_mesh() is one shard per card on a node of several).
-    Raises without CUDA unless device="cpu" is passed."""
+    With a torch.distributed group of W processes initialized, the mesh
+    spans every process, as the JAX package's spans jax.devices() after
+    init_distributed: `num_devices` None is one shard per process, else
+    `num_devices` = W x L shards, L in each process (W must divide it);
+    global shard s = rank * L + i, local shard i on `device` where it is
+    given, else on cuda:(s % C), C being the cards this process sees.
+    Only local shard 0 calls the group (on its card, under NCCL, which
+    takes one rank a card), so no two processes' local shard 0 may share
+    a card: on cards, every process raises GDF_INVALID_API_CALL where two
+    do (the processes' cards are gathered over the group, so every
+    process calls make_mesh). Otherwise every shard in this process: all `num_devices`
+    (default IN_PROCESS_SHARDS) on `device` where it is given, else spread
+    over the node's cards by `placement` (make_mesh() is one shard per
+    card on a node of several). Raises without CUDA unless device="cpu"
+    is passed."""
     dist = _process_group()
     if dist is not None:
-        size = dist.get_world_size()
-        require(num_devices in (None, size), GDFStatus.GDF_INVALID_API_CALL,
-                f"a process group of {size} ranks holds {size} shards")
-        rank = dist.get_rank()
-        if device is None and torch.cuda.is_available():
-            device = torch.device("cuda", rank % torch.cuda.device_count())
-        return Mesh(size, _device(device), "process_group", (rank,))
+        procs, rank = dist.get_world_size(), dist.get_rank()
+        size = procs if num_devices is None else int(num_devices)
+        require(size >= 1 and size % procs == 0,
+                GDFStatus.GDF_INVALID_API_CALL,
+                f"{size} shards do not split over {procs} processes")
+        per = size // procs
+        local = tuple(range(rank * per, (rank + 1) * per))
+        if device is None:
+            host_data_device(None)              # raises without CUDA
+            cards = torch.cuda.device_count()
+            devices = tuple(torch.device("cuda", s % cards) for s in local)
+        else:
+            devices = (_device(device),) * len(local)
+        if procs > 1 and devices[0].type == "cuda":
+            _require_own_leader_cards(dist, devices[0])
+        return Mesh(size, devices[0], "process_group", local, devices)
     if device is None:
         host_data_device(None)                  # raises without CUDA
         devices = placement(num_devices, torch.cuda.device_count())
@@ -145,14 +190,17 @@ def init_distributed(coordinator: str | None = None,
                      process_id: int | None = None) -> None:
     """Join a torch.distributed group of `num_processes` processes at
     `coordinator` ("host:port"), as rank `process_id`: gloo for CPU
-    tensors, NCCL for CUDA tensors where there is a card. No-op when
-    single process."""
+    tensors, NCCL for CUDA tensors where there is a card. A collective
+    that waits longer than comm.COLLECTIVE_TIMEOUT (a peer that failed)
+    raises. No-op when single process."""
     if num_processes is None or num_processes <= 1:
         return
     import torch.distributed as dist
     backend = "cpu:gloo,cuda:nccl" if torch.cuda.is_available() else "gloo"
-    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
-                            world_size=num_processes, rank=process_id)
+    dist.init_process_group(
+        backend, init_method=f"tcp://{coordinator}",
+        world_size=num_processes, rank=process_id,
+        timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT))
 
 
 @dataclass(frozen=True)

@@ -24,14 +24,17 @@ is the cost of the cross-stream synchronization alone; it is not safe
 with a stream per shard). Each round runs OTHER, streams, one-stream,
 bare, bare, one-stream, streams, OTHER.
 
---cards (a node of C >= 2 cards, this checkout, one process): the same
-path at P = 8 on cuda:0, on make_mesh(C) (one shard per card) and on
-make_mesh(2C) (shard s on cuda:(s % C)), in turns each round, each run
-after a warm-up, its shards' devices checked and every variant held to
-the single-table pipeline on cuda:0 (chip_smoke.check_dist_path).
+--cards (this checkout, one process that also starts the workers): the
+same path at P = 8 on cuda:0 and, on a node of C >= 2 cards, on
+make_mesh(C) (one shard per card) and make_mesh(2C) (shard s on
+cuda:(s % C)), each after a warm-up, its shards' devices checked; then
+across processes, chip_smoke.run_processes (W = 1, L = 8 on one card,
+and W = C, L = 1 and W = 2, L = C / 2 where the node has the cards). Each
+round runs them all in turns; every run is held to the single-table
+pipeline on cuda:0 (chip_smoke.check_dist_path), the layout W = 1,
+L = 8 also shard by shard to the first in-process P = 8 run.
 
-It prints the card lines and one line per run; it exits 1 without CUDA
-(and with --cards on a node of one card).
+It prints the card lines and one line per run; it exits 1 without CUDA.
 """
 from __future__ import annotations
 
@@ -88,19 +91,20 @@ def run_turn(root: str, label: str, mode: str) -> None:
 
 
 def run_cards(rounds: int) -> None:
-    """The path on one card and over the node's cards, in turns."""
+    """The path on one card, over the node's cards and across processes,
+    in turns."""
     sys.path[0] = str(ROOT)
     import torch
     import chip_smoke as cs
 
     cards = torch.cuda.device_count()
-    if cards < 2:
-        sys.exit(f"turns --cards: this node has {cards} card")
     data = cs.make_dist_data(cs.N_DIST, 0)
     ref, absref = cs.dist_reference(data, torch.device("cuda", 0))
-    meshes = {"one card, P = 8": (torch.device("cuda", 0), cs.DIST_P),
-              f"{cards} cards, P = {cards}": (None, cards),
-              f"{cards} cards, P = {2 * cards}": (None, 2 * cards)}
+    meshes = {"one card, P = 8": (torch.device("cuda", 0), cs.DIST_P)}
+    if cards >= 2:
+        meshes[f"{cards} cards, P = {cards}"] = (None, cards)
+        meshes[f"{cards} cards, P = {2 * cards}"] = (None, 2 * cards)
+    inproc = None
     for _ in range(rounds):
         for label, (device, shards) in meshes.items():
             cs.run_dist_path(data, device, shards)
@@ -111,11 +115,15 @@ def run_cards(rounds: int) -> None:
             if devs != want:
                 sys.exit(f"{label}: shards on {devs}")
             err, _ = cs.check_dist_path(res, ref, absref, label)
+            if inproc is None:
+                inproc = cs.inproc_rows(res)
             print(f"{label}: " + cs.dist_rates(times) + " exchange_share "
                   + "/".join(f"{res[v]['exchange_share']:.4f}"
-                             for v in ("plain", "salted", "broadcast"))
+                             for v in cs.VARIANTS)
                   + f" (every variant equals the single-table pipeline, "
                   f"sum error {err}; shards on {devs})", flush=True)
+            del res
+        cs.run_processes(ref, absref, inproc)
 
 
 def main(argv=None) -> int:

@@ -86,6 +86,34 @@ def test_seg_scan(dev, n, dtype, kind, density):
         torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
+@pytest.mark.parametrize("n", [0, 1, 8193, 100_003])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16])
+@pytest.mark.parametrize("kind", ["sum", "max", "min", "carry"])
+def test_narrow_ints_run_as_int32(dev, n, dtype, kind):
+    """int8 and int16 values (fault C10: the card raised TypeError) scan
+    as int32 and come back narrowed, equal to the plain version over the
+    dtype's whole range, where the sums wrap; the launch counts int32."""
+    rng = np.random.default_rng(n + 11)
+    info = torch.iinfo(dtype)
+    x = torch.as_tensor(rng.integers(info.min, info.max, n, endpoint=True),
+                        device=dev).to(dtype)
+    f = torch.as_tensor(rng.random(n) < 0.01, device=dev)
+    kernels.reset_launch_counts()
+    got = [kernels.seg_scan(kind, f, x)]
+    want = [kernels.seg_scan_plain(kind, f, x)]
+    if kind != "carry":
+        for reverse in (False, True):
+            got.append(kernels.scan(kind, x, reverse=reverse))
+            want.append(kernels.scan_plain(kind, x, reverse=reverse))
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    counts = kernels.launch_counts()
+    assert counts.get(f"seg_scan[{dtype}]".replace("torch.", ""), 0) == 0
+    if n:
+        assert counts["seg_scan[int32]"] == 1
+
+
 # H2's and H3's tiles hold 8192 4-byte or 4096 8-byte elements
 FLUSH_SIZES = [0, 1, 4095, 4096, 4097, 8191, 8192, 8193, 37 * 8192 + 1,
                1_000_000]
@@ -363,7 +391,8 @@ def test_expand_fill_of_zero_sources(dev, cap):
 
 
 def test_wrappers_refuse_what_they_cannot_launch(dev):
-    x = torch.arange(10, dtype=torch.int16, device=dev)
+    # int8 / int16 launch as int32 since C10; no column is float16
+    x = torch.arange(10, dtype=torch.float16, device=dev)
     with pytest.raises(TypeError):
         kernels.scan("sum", x)
     y = torch.arange(20, dtype=torch.int32, device=dev)[::2]
@@ -821,6 +850,103 @@ def test_one_shard_per_card(dev, per_card):
         assert [s.device for s in g.shards] == list(mesh.devices)
         assert g.counts.device == torch.device("cuda", 0)
         assert par.collect(g).device == torch.device("cuda", 0)
+
+
+def test_every_dtype_crosses_nccl(dev, tmp_path):
+    """Every collective over every column dtype of core/dtypes.py and bool
+    (tests/test_torch_process_mesh.py::collectives), through a one-rank
+    cpu:gloo,cuda:nccl group with 4 shards on the card: the same bytes on
+    every rank as the in-process mesh of 4 shards on the card. NCCL has no
+    int16 either (fault C9): it crosses as its bytes."""
+    import torch.distributed as dist
+    from libgdf_tpu_torch import parallel as par
+    from libgdf_tpu_torch.parallel.distributed import _spmd
+    from libgdf_tpu_torch.parallel.mesh import Mesh
+    from test_torch_process_mesh import LOCAL, collectives, same_bytes
+    card = torch.device("cuda", torch.cuda.current_device())
+    threads = Mesh(LOCAL, card, "threads", tuple(range(LOCAL)))
+    want = _spmd(threads, par.DEFAULT_AXIS, collectives)
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = par.make_mesh(LOCAL, device=card)
+        assert mesh.backend == "process_group"
+        got = _spmd(mesh, par.DEFAULT_AXIS, collectives)
+    finally:
+        dist.destroy_process_group()
+    for g, w in zip(got, want):
+        same_bytes(g, w)
+
+
+@pytest.mark.parametrize("layout", ["one process of 8", "2 processes"])
+def test_processes_equal_the_in_process_mesh(dev, layout, tmp_path):
+    """A mesh across processes over NCCL (tests/torch_mp_worker.py,
+    --device cuda): one process of 8 shards on cuda:0 in a one-rank
+    cpu:gloo,cuda:nccl group, and on a node of C >= 2 cards 2 processes of
+    C / 2 shards (shard s on cuda:s, so each process's local shard 0, the
+    one that calls NCCL, has a card of its own). Every shard of every
+    operator of torch_mp_worker.run_ops (int64 and int16 keys, int16
+    values whose sums wrap, float64 values with nulls, each a multiple of
+    1/4) equals bit for bit the same shard of the in-process mesh of as
+    many shards, placed as make_mesh places them."""
+    import torch_mp_worker as mpw
+    from libgdf_tpu_torch import Table
+    from libgdf_tpu_torch import parallel as par
+    cards = torch.cuda.device_count()
+    procs, local = 1, 8
+    if layout == "2 processes":
+        if cards < 2:
+            pytest.skip(f"2 processes with a card each need 2 cards; this "
+                        f"machine has {cards}")
+        procs, local = 2, cards // 2
+    rows = 20_000
+    mpw.run_workers(procs, "--local-shards", str(local), "--out",
+                    str(tmp_path), "--device", "cuda", "--rows", str(rows))
+    fact, nulls, dim = mpw.mixed_data(rows)
+    mesh = par.make_mesh(procs * local)
+    want = mpw.run_ops(
+        mesh, par.distribute(Table.from_dict(fact, nulls, device="cpu"),
+                             mesh),
+        par.distribute(Table.from_dict(dim, device="cpu"), mesh))
+    for op in mpw.OPS:
+        _same_shards(mpw.load_shards(str(tmp_path), op, mesh.size), want[op],
+                     op)
+
+
+_LEADERS_ON_ONE_CARD = """
+import sys
+sys.path.insert(0, sys.argv[3])
+import torch.distributed as dist
+from libgdf_tpu_torch import GDFError, GDFStatus, parallel as par
+par.init_distributed(sys.argv[1], 2, int(sys.argv[2]))
+try:
+    par.make_mesh(2 * int(sys.argv[4]))
+except GDFError as e:
+    assert e.status == GDFStatus.GDF_INVALID_API_CALL, e
+    print("refused")
+dist.destroy_process_group()
+"""
+
+
+def test_two_processes_leading_from_one_card_are_refused(dev):
+    """2 processes of C shards each on a node of C >= 2 cards,
+    make_mesh(2 C): both processes' local shard 0 (the one that calls
+    NCCL, which takes one rank a card) on cuda:0. Both raise
+    GDF_INVALID_API_CALL in make_mesh, before any collective of the
+    mesh."""
+    import os
+    import sys
+    from libgdf_tpu_torch.parallel import procs
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip(f"2 processes on one node's cards need 2 cards; this "
+                    f"machine has {cards}")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    outs = procs.start(lambda coord, r: [
+        sys.executable, "-c", _LEADERS_ON_ONE_CARD, coord, str(r), root,
+        str(cards)], 2, 180)
+    assert all("refused" in out for out in outs), outs
 
 
 # -- the cost probes (libgdf_tpu_torch/probes/), P-1 .. P-14 -----------------
