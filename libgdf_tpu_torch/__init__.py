@@ -19,7 +19,7 @@ Layout (mirrors libgdf_tpu):
   parallel/     mesh of row shards, sharded tables, shuffles, distributed
                 operators (in-process threads or torch.distributed)
   compat/       the flat gdf_* / gpu_* / rmm* ABI surface
-  utils/        tracing ranges, per-operator metrics
+  utils/        tracing: the operators' spans, the count of host reads
   interop.py    numpy <-> Table
 
 numpy data goes to the card unless the caller passes device="cpu".

@@ -38,7 +38,8 @@ from ..core.dtypes import (DtypeInfo, GDFDtype, WindowFunctionType,
                            WindowReductionType, byte_width)
 from ..core.errors import GDFError, GDFStatus, error_get_name, require
 from ..core.table import Table
-from ..utils.tracing import range_pop, range_push, range_push_hex
+from ..utils.tracing import (host_sync, range_pop, range_push,
+                             range_push_hex)
 
 __all__ = []  # populated at bottom
 
@@ -279,7 +280,8 @@ def gpu_apply_stencil(lhs: Column, stencil: Column) -> Column:
     """≅ gpu_apply_stencil (src/streamcompactionops.cu:163-260): keep rows
     where stencil != 0 AND stencil valid; returns the compacted column."""
     out, count = ops.apply_stencil(lhs, stencil)
-    n = int(count)
+    with host_sync("stencil.count"):
+        n = int(count)
     return Column(data=out.data[:n],
                   valid=None if out.valid is None else out.valid[:n],
                   info=out.info, name=out.name)

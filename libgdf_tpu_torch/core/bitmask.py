@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.tracing import host_sync
+
 GDF_VALID_BITSIZE = 8  # include/gdf/gdf.h:10
 
 
@@ -43,7 +45,8 @@ def count_valid(valid: torch.Tensor | None, nrows: int,
     ≅ gdf_count_nonzero_mask (src/validops.cu:84-196). With no mask the
     count is `nrows`, on `device` (default: the CPU, it is a host number)."""
     if valid is None:
-        return torch.tensor(nrows, dtype=torch.int32, device=device)
+        with host_sync("bitmask.count"):    # a blocking copy
+            return torch.tensor(nrows, dtype=torch.int32, device=device)
     return valid.sum(dtype=torch.int32)
 
 

@@ -22,6 +22,7 @@ import torch
 from .bitmask import pack_bool_mask, unpack_bitmask
 from .dtypes import DtypeInfo, GDFDtype, TimeUnit, dtype_from_numpy, physical_dtype
 from .errors import GDFError, GDFStatus
+from ..utils.tracing import host_sync
 
 
 def host_data_device(device=None) -> torch.device:
@@ -158,9 +159,10 @@ class Column:
     def to_numpy_masked(self):
         """Return (values: np.ndarray, null_mask: np.ndarray bool); copies
         to the host, so it syncs."""
-        vals = self.data.cpu().numpy()
-        nulls = (np.zeros(self.size, bool) if self.valid is None
-                 else ~self.valid.cpu().numpy())
+        with host_sync("column.to_numpy"):
+            vals = self.data.cpu().numpy()
+            nulls = (np.zeros(self.size, bool) if self.valid is None
+                     else ~self.valid.cpu().numpy())
         return vals, nulls
 
 

@@ -18,6 +18,7 @@ import torch
 from .bitmask import mask_and
 from .column import Column, as_tensor, column_concat
 from .errors import GDFStatus, require
+from ..utils.tracing import host_sync, spanned
 
 
 def _count_tensor(num_rows, device) -> Optional[torch.Tensor]:
@@ -25,7 +26,8 @@ def _count_tensor(num_rows, device) -> Optional[torch.Tensor]:
         return None
     if isinstance(num_rows, torch.Tensor):
         return num_rows.to(device=device, dtype=torch.int32).reshape(())
-    return torch.tensor(int(num_rows), dtype=torch.int32, device=device)
+    with host_sync("table.count"):          # a blocking copy
+        return torch.tensor(int(num_rows), dtype=torch.int32, device=device)
 
 
 @dataclass(frozen=True)
@@ -182,6 +184,7 @@ class Table:
             eq = eq & (a.data[mi] == b.data[oi])
         return eq
 
+    @spanned("libgdf.op.gather")
     def gather(self, indices, fill_invalid: bool = False,
                num_rows=None) -> "Table":
         """New table = rows at `indices` (clipped into range).
@@ -227,7 +230,8 @@ class Table:
         """Slice off dead rows. Reads `num_rows` on the host (one sync)."""
         if self.num_rows is None:
             return self
-        n = int(self.num_rows)
+        with host_sync("table.compact"):
+            n = int(self.num_rows)
         cols = tuple(
             replace(c, data=c.data[:n],
                     valid=None if c.valid is None else c.valid[:n])

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from .core.table import Table
+from .utils.tracing import host_sync
 
 
 def from_numpy(columns: dict, nulls: dict | None = None,
@@ -26,8 +27,9 @@ def to_numpy(table: Table):
     rows."""
     t = table.compact()
     values, nulls = {}, {}
-    for name, c in zip(t.names, t.columns):
-        values[name] = c.data.cpu().numpy()
-        nulls[name] = (np.zeros(c.size, bool) if c.valid is None
-                       else ~c.valid.cpu().numpy())
+    with host_sync("interop.to_numpy"):
+        for name, c in zip(t.names, t.columns):
+            values[name] = c.data.cpu().numpy()
+            nulls[name] = (np.zeros(c.size, bool) if c.valid is None
+                           else ~c.valid.cpu().numpy())
     return values, nulls

@@ -13,7 +13,7 @@ import torch
 from ..core.column import Column
 from ..core.errors import GDFStatus, require
 from ..core.table import Table
-from ..utils.metrics import op_metrics, table_bytes
+from ..utils.tracing import spanned
 from .kernels import compact
 
 
@@ -78,16 +78,14 @@ def apply_stencil(col: Column, stencil: Column):
     return col.with_data(data), count
 
 
+@spanned("libgdf.op.filter_table")
 def filter_table(table: Table, stencil: Column) -> Table:
     """Compact every column of a table by one stencil. Returns a Table with
     num_rows = survivor count."""
     require(table.capacity == stencil.size,
             GDFStatus.GDF_COLUMN_SIZE_MISMATCH)
-    with op_metrics("LIBGDF_FILTER", rows_in=table.capacity,
-                    bytes_est=2 * table_bytes(table)) as m:
-        keep = stencil_keep_mask(stencil)
-        if table.num_rows is not None:
-            keep = keep & table.live_mask()
-        out, count = compact_table(table, keep)
-        m["rows_out"] = count
+    keep = stencil_keep_mask(stencil)
+    if table.num_rows is not None:
+        keep = keep & table.live_mask()
+    out, count = compact_table(table, keep)
     return out.with_num_rows(count)

@@ -40,6 +40,7 @@ from ..core.bits import flush_denormals
 from ..core.column import Column
 from ..core.dtypes import DtypeInfo, GDFDtype, TimeUnit, dtype_from_numpy
 from ..core.errors import GDFError, GDFStatus, require
+from ..utils.tracing import host_sync, span, spanned
 
 # ---------------------------------------------------------------------------
 # Unary math (unaryops.cu:96-335)
@@ -111,8 +112,9 @@ def convert(data: torch.Tensor, to: torch.dtype) -> torch.Tensor:
     info = torch.iinfo(to)
     # the ends as `data`'s dtype; iinfo.max rounds up to 2^k where it has
     # no exact float, and every float >= 2^k is past the range
-    lo = torch.tensor(info.min, dtype=data.dtype, device=data.device)
-    hi = torch.tensor(info.max, dtype=data.dtype, device=data.device)
+    with host_sync("convert.bounds"):       # two blocking copies
+        lo = torch.tensor(info.min, dtype=data.dtype, device=data.device)
+        hi = torch.tensor(info.max, dtype=data.dtype, device=data.device)
     over, under = data >= hi, data <= lo
     inside = ~(over | under | torch.isnan(data))
     out = torch.where(inside, data, torch.zeros_like(data)).to(to)
@@ -217,15 +219,16 @@ def binary_op(a: Column, b: Column, op: str) -> Column:
     """Arithmetic/bitwise binary op, valid where both inputs are
     (binaryops.cu:22-24); comparison ops return INT8 0/1. The output keeps
     `a`'s logical dtype where the result has its physical dtype."""
-    if op in _CMP:
-        return compare(a, b, op)
-    require(a.size == b.size, GDFStatus.GDF_COLUMN_SIZE_MISMATCH)
-    if op in _ARITH:
-        out = _ARITH[op](a.data, b.data)
-        info = a.info if out.dtype == a.info.physical else \
-            DtypeInfo(dtype_from_numpy(out.dtype))
-        return Column(data=out, valid=mask_and(a.valid, b.valid), info=info,
-                      name=a.name)
+    with span("libgdf.op." + op):
+        if op in _CMP:
+            return compare(a, b, op)
+        require(a.size == b.size, GDFStatus.GDF_COLUMN_SIZE_MISMATCH)
+        if op in _ARITH:
+            out = _ARITH[op](a.data, b.data)
+            info = a.info if out.dtype == a.info.physical else \
+                DtypeInfo(dtype_from_numpy(out.dtype))
+            return Column(data=out, valid=mask_and(a.valid, b.valid),
+                          info=info, name=a.name)
     raise GDFError(GDFStatus.GDF_INVALID_API_CALL, f"unknown binop {op!r}")
 
 
@@ -245,6 +248,7 @@ def bitwise_or(a, b): return binary_op(a, b, "bitwise_or")
 def bitwise_xor(a, b): return binary_op(a, b, "bitwise_xor")
 
 
+@spanned("libgdf.op.compare_scalar")
 def compare_scalar(col: Column, value, op) -> Column:
     """column OP scalar -> INT8 stencil column (1 = pass).
 

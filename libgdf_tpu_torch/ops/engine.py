@@ -17,9 +17,11 @@ from typing import Sequence
 import torch
 
 from ..core.bits import flush_denormals
+from ..utils.tracing import spanned
 from .kernels import scan, seg_scan
 
 
+@spanned("libgdf.sort")
 def multi_sort(operands: Sequence[torch.Tensor], num_keys: int,
                stable: bool = True):
     """Stable lexicographic sort by the first `num_keys` operands; every

@@ -34,7 +34,7 @@ from ..core.column import Column
 from ..core.dtypes import DtypeInfo, GDFDtype, dtype_from_numpy
 from ..core.errors import GDFStatus, require
 from ..core.table import Table
-from ..utils.metrics import op_metrics, table_bytes
+from ..utils.tracing import host_sync, spanned
 from .compaction import compact_arrays
 from .engine import multi_sort, seg_scan_max, seg_scan_min, seg_scan_sum
 from .sort import (bit_field_offsets, pack_bit_fields, radix_bits,
@@ -55,6 +55,7 @@ def _agg_identity(op: str, dtype: torch.dtype):
     return info.max if op == "min" else info.min
 
 
+@spanned("libgdf.op.groupby")
 def groupby(table: Table, key_names: Sequence[str], aggs: Sequence[tuple],
             dropna: bool = True) -> Table:
     """Group by key columns and aggregate.
@@ -65,11 +66,7 @@ def groupby(table: Table, key_names: Sequence[str], aggs: Sequence[tuple],
     require(len(key_names) > 0, GDFStatus.GDF_DATASET_EMPTY, "no keys")
     for a in aggs:
         require(a[1] in AGG_OPS, GDFStatus.GDF_INVALID_AGGREGATOR, a[1])
-    with op_metrics("LIBGDF_GROUPBY", rows_in=table.capacity,
-                    bytes_est=2 * table_bytes(table)) as m:
-        out = _groupby_impl(table, key_names, aggs, dropna)
-        m["rows_out"] = out.num_rows
-    return out
+    return _groupby_impl(table, key_names, aggs, dropna)
 
 
 def _groupby_impl(table: Table, key_names, aggs, dropna: bool) -> Table:
@@ -137,7 +134,8 @@ def _groupby_impl(table: Table, key_names, aggs, dropna: bool) -> Table:
     # Group boundaries (≅ reduce_by_key's equality predicate).
     new_group = torch.zeros(n, dtype=torch.bool, device=dev)
     if n:
-        new_group[0] = True
+        with host_sync("groupby.new_group"):    # a blocking copy
+            new_group[0] = True
     for k in s_enc:
         new_group[1:] |= k[1:] != k[:-1]
     if s_key_null:

@@ -21,6 +21,7 @@ from ..core.column import Column
 from ..core.dtypes import DtypeInfo, GDFDtype
 from ..core.errors import GDFStatus, require
 from ..core.table import Table
+from ..utils.tracing import host_sync
 from .engine import multi_sort
 
 M32 = 0xFFFFFFFF
@@ -202,5 +203,6 @@ def partition_sizes(part_ids: torch.Tensor, num_partitions: int,
     if live_mask is not None:
         ok = ok & live_mask
     ids = torch.where(ok, part_ids.to(torch.int64), num_partitions)
-    return torch.bincount(ids, minlength=num_partitions + 1)[
-        :num_partitions].to(torch.int32)
+    with host_sync("hash.partition_sizes"):     # bincount reads ids' max
+        counts = torch.bincount(ids, minlength=num_partitions + 1)
+    return counts[:num_partitions].to(torch.int32)

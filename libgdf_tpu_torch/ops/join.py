@@ -28,7 +28,7 @@ from ..core.bits import flush_float_keys
 from ..core.column import Column
 from ..core.errors import GDFStatus, require
 from ..core.table import Table
-from ..utils.metrics import op_metrics, table_bytes
+from ..utils.tracing import host_sync, spanned
 from . import engine
 from .compaction import compact_arrays
 from .engine import last_valid_scan, multi_sort
@@ -86,6 +86,7 @@ def lex_searchsorted(sorted_keys, query_keys, side: str) -> torch.Tensor:
     return lo.to(torch.int32)
 
 
+@spanned("libgdf.op.join_indices")
 def join_indices(left: Table, right: Table, left_on: Sequence[str],
                  right_on: Sequence[str], how: str = "inner",
                  out_capacity: int | None = None,
@@ -99,12 +100,8 @@ def join_indices(left: Table, right: Table, left_on: Sequence[str],
     and poisons the count to -1 if the build side has duplicate keys."""
     require(how in ("inner", "left", "full"),
             GDFStatus.GDF_UNSUPPORTED_JOIN_TYPE, how)
-    with op_metrics("LIBGDF_JOIN", rows_in=left.capacity + right.capacity,
-                    bytes_est=table_bytes(left) + table_bytes(right)) as m:
-        out = _join_indices_impl(left, right, left_on, right_on, how,
-                                 out_capacity, assume_unique_build)
-        m["rows_out"] = out[2]
-    return out
+    return _join_indices_impl(left, right, left_on, right_on, how,
+                              out_capacity, assume_unique_build)
 
 
 def _join_indices_impl(left, right, left_on, right_on, how, out_capacity,
@@ -128,7 +125,8 @@ def _join_indices_impl(left, right, left_on, right_on, how, out_capacity,
     total, emit, offsets, s_back, run_lower, flag_bits, aux = _emit_plan(
         how, bkeys, widths, pkeys, b_nomatch, p_nomatch, b_live, p_live)
 
-    total_host = int(total)
+    with host_sync("join.total"):
+        total_host = int(total)
     cap = total_host if out_capacity is None else int(out_capacity)
     require(total_host <= cap, GDFStatus.GDF_COLUMN_SIZE_TOO_BIG,
             f"join output {total_host} rows > out_capacity {cap}")
@@ -144,7 +142,8 @@ def _join_indices_impl(left, right, left_on, right_on, how, out_capacity,
     # every matchable run holds <= 1 build row, no probe row matches twice.
     b_rank = torch.where(is_build & matchable,
                          aux["nbuild_before"] - run_lower + 1, 0)
-    unique_build = bool(b_rank.max() <= 1)
+    with host_sync("join.unique_build"):
+        unique_build = bool(b_rank.max() <= 1)
 
     if assume_unique_build:
         left_idx, right_idx = _fast_path(how, aux, is_build, isq, live, cnt,
@@ -315,7 +314,8 @@ def _emit_plan(how, bkeys, widths, pkeys, b_nomatch, p_nomatch, b_live,
 
     nbuild_before = engine.cumsum(countable, torch.int32) - countable
     key_change = torch.zeros(L, dtype=torch.bool, device=dev)
-    key_change[0] = True
+    with host_sync("join.key_change"):      # a blocking copy
+        key_change[0] = True
     for k in s_keys:
         key_change[1:] |= k[1:] != k[:-1]
     run_lower = engine.cummax(torch.where(key_change, nbuild_before, -1))
@@ -343,6 +343,7 @@ def _emit_plan(how, bkeys, widths, pkeys, b_nomatch, p_nomatch, b_live,
     return total, emit, offsets, s_back, run_lower, flag_bits, aux
 
 
+@spanned("libgdf.op.join")
 def join(left: Table, right: Table, left_on: Sequence[str],
          right_on: Sequence[str], how: str = "inner",
          out_capacity: int | None = None, suffixes=("_x", "_y")) -> Table:

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils.tracing import host_sync
 from . import _lib
 
 SENTINEL = 2 ** 30  # tail positions; cap must stay below it
@@ -36,6 +37,9 @@ def expand_fill_plain(pos: torch.Tensor, words, cap: int):
 def expand_fill(pos: torch.Tensor, words, cap: int):
     """Returns one tensor of length `cap` per word."""
     words = list(words)
+    if isinstance(cap, torch.Tensor):
+        with host_sync("expand.cap"):
+            cap = cap.item()
     cap = int(cap)
     if pos.dtype != torch.int32 or pos.dim() != 1:
         raise TypeError("expand_fill: pos must be a 1-D int32 tensor")

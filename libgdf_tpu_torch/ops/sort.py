@@ -26,7 +26,7 @@ from ..core.bits import f64_ieee_bits
 from ..core.column import Column, as_tensor
 from ..core.errors import GDFStatus, require
 from ..core.table import Table
-from ..utils.metrics import op_metrics, table_bytes
+from ..utils.tracing import spanned
 from .engine import multi_sort
 
 SIGN = -(1 << 63)            # int64 with only the sign bit set
@@ -208,6 +208,7 @@ def key_operands(table: Table, key_names: Sequence[str], ascending,
         key_fields(table, key_names, ascending, nulls_last))
 
 
+@spanned("libgdf.op.order_by")
 def order_by(table: Table, key_names: Sequence[str], ascending=True,
              nulls_last: bool = True) -> torch.Tensor:
     """The permutation (int32[capacity]) that sorts the table by the key
@@ -217,15 +218,12 @@ def order_by(table: Table, key_names: Sequence[str], ascending=True,
     null placement. The row index rides in the low bits of the last word,
     exactly as in the JAX package, so the order is the same."""
     n = table.capacity
-    with op_metrics("LIBGDF_ORDERBY", rows_in=n,
-                    bytes_est=2 * table_bytes(table)) as m:
-        m["rows_out"] = n
-        fields = key_fields(table, key_names, ascending, nulls_last)
-        iota_bits = max(1, max(n - 1, 1).bit_length())
-        words = pack_bit_fields(fields, iota_bits=iota_bits, n=n,
-                                device=table.device)
-        out = multi_sort(words, num_keys=len(words))
-        return ((out[-1] ^ SIGN) & ((1 << iota_bits) - 1)).to(torch.int32)
+    fields = key_fields(table, key_names, ascending, nulls_last)
+    iota_bits = max(1, max(n - 1, 1).bit_length())
+    words = pack_bit_fields(fields, iota_bits=iota_bits, n=n,
+                            device=table.device)
+    out = multi_sort(words, num_keys=len(words))
+    return ((out[-1] ^ SIGN) & ((1 << iota_bits) - 1)).to(torch.int32)
 
 
 def sort_table(table: Table, key_names: Sequence[str] | None = None,

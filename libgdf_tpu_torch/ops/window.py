@@ -43,6 +43,7 @@ from ..core.column import Column
 from ..core.dtypes import DtypeInfo, GDFDtype
 from ..core.errors import GDFStatus, require
 from ..core.table import Table
+from ..utils.tracing import host_sync
 from . import engine
 from .engine import multi_sort
 from .hashing import hash_columns
@@ -267,7 +268,8 @@ def window_function(table: Table, value_name: str, reduction: str,
         vals, perm = col.data, None
 
     seg_start = torch.zeros(n, dtype=torch.bool, device=dev)
-    seg_start[0] = True
+    with host_sync("window.seg_start"):     # a blocking copy
+        seg_start[0] = True
     if partition_by:
         sorted_part = unpack_bit_field(s_words, offs[0], 32)
         seg_start[1:] = sorted_part[1:] != sorted_part[:-1]
@@ -283,7 +285,9 @@ def window_function(table: Table, value_name: str, reduction: str,
             unpack_bit_field(s_words, offs[-1], width), width)
         o_sorted = radix_decode(enc_o, odt)
         if o_sorted.is_floating_point():
-            q = o_sorted - torch.tensor(preceding, dtype=odt, device=dev)
+            with host_sync("window.preceding"):    # a blocking copy
+                delta = torch.tensor(preceding, dtype=odt, device=dev)
+            q = o_sorted - delta
         else:
             info = torch.iinfo(odt)
             q = (o_sorted.to(torch.int64) - math.floor(preceding)).clamp(

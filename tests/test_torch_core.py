@@ -21,7 +21,6 @@ from libgdf_tpu_torch import Column, Table, ops
 from libgdf_tpu_torch import column_concat, table_concat
 from libgdf_tpu_torch.core import bitmask, bits, context, dtypes, errors
 from libgdf_tpu_torch.interop import from_numpy, to_numpy
-from libgdf_tpu_torch.utils import metrics
 from torch_parity import (assert_tables_match, jax_to_numpy, make_tables,
                           np_of)
 
@@ -160,20 +159,6 @@ def test_f64_bits_canonicalized_like_jax():
     got = bits.f64_ieee_bits(torch.as_tensor(x)).numpy().view(np.uint64)
     want = np.asarray(jbits.f64_ieee_bits(jnp.asarray(x)))
     np.testing.assert_array_equal(got, want)
-
-
-def test_metrics_record_filter_events():
-    metrics.reset()
-    metrics.enable(True)
-    try:
-        t = from_numpy({"a": np.arange(10, dtype=np.int32)}, device="cpu")
-        ops.filter_table(t, ops.compare_scalar(t["a"], 4, "lt"))
-    finally:
-        metrics.enable(False)
-    (ev,) = metrics.events()
-    assert (ev.name, ev.rows_in, ev.rows_out) == ("LIBGDF_FILTER", 10, 4)
-    assert metrics.write_log().splitlines()[0].startswith("op,rows_in")
-    metrics.reset()
 
 
 def test_context_is_the_jax_packages_module():
