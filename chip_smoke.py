@@ -212,11 +212,12 @@ from libgdf_tpu_torch.compat import gdf
 from libgdf_tpu_torch.io import CSVReadArg
 from libgdf_tpu_torch import probes
 from libgdf_tpu_torch.ops import kernels
-from libgdf_tpu_torch.ops.kernels import _lib
+from libgdf_tpu_torch.ops.kernels import _lib, dense
 from libgdf_tpu_torch.ops.sort import radix_encode
 from libgdf_tpu_torch.parallel import procs as procs_mod
 from libgdf_tpu_torch.parallel.mesh import Mesh
 from libgdf_tpu_torch.probes import caps, gather, roll, tilesort
+from libgdf_tpu_torch.utils import tracing
 
 SOURCES = {
     "compact": ("libgdf_tpu_torch/csrc/compact.cu",
@@ -229,7 +230,14 @@ SOURCES = {
                  "scan.py:456; scan.py:610"),
     "expand_fill": ("libgdf_tpu_torch/csrc/expand.cu",
                     "libgdf_tpu/ops/pallas/expand.py:210"),
+    "domain_probe": ("libgdf_tpu_torch/csrc/dense_groupby.cu",
+                     "none: H5's probe of the live key domain"),
+    "dense_groupby": ("libgdf_tpu_torch/csrc/dense_groupby.cu",
+                      "none: the group-by that libgdf_tpu/ops/groupby.py "
+                      "sorts for, over a small integer key domain"),
 }
+# the kernels the main path must launch (its group-by takes the sort path)
+MAIN_KERNELS = ("compact", "scan", "seg_scan", "expand_fill")
 REL = {torch.float32: 2e-4, torch.float64: 1e-12}
 # the edges of H2's and H3's 32 KB tiles (8192 4-byte or 4096 8-byte
 # elements), H1's 4096-row tiles and H4's 4096-slot runs, and many tiles
@@ -264,6 +272,8 @@ KERNEL_NAMES = {"compact": ("compact_lookback",),
                 "scan": ("scan_lookback",),
                 "seg_scan": ("scan_lookback",),
                 "expand_fill": ("expand_fill_runs",),
+                "domain_probe": ("domain_probe",),
+                "dense_groupby": ("dense_groupby",),
                 "tile_sort": ("tile_sort_cluster",),
                 "lane_gather": ("lane_gather_rows",),
                 "sublane_gather": ("sublane_gather_persistent",),
@@ -772,6 +782,242 @@ def phase_expand(rng, dev):
                 plain_ms=plain, library_ms=None,
                 bound_ms=bound_ms(moved), bound_by="bytes",
                 shape="40M slots from 10M sources, 3 int32 words")
+
+
+# -- H5 dense_groupby and its domain probe ----------------------------------
+
+# TPC-H Q1's group-by at SF 10 (clause 2.4.1): lineitem's capacity, the
+# rows its filter keeps at DELTA 90, and its keys and aggregates
+N_Q1, N_Q1_LIVE = 59_986_052, 58_900_000
+Q1_KEYS = ("l_returnflag", "l_linestatus")
+Q1_AGGS = [("l_quantity", "sum", "sum_qty"),
+           ("l_extendedprice", "sum", "sum_base_price"),
+           ("disc_price", "sum", "sum_disc_price"),
+           ("charge", "sum", "sum_charge"),
+           ("l_quantity", "avg", "avg_qty"),
+           ("l_extendedprice", "avg", "avg_price"),
+           ("l_discount", "avg", "avg_disc"),
+           ("l_quantity", "count", "count_order")]
+# H5's sums against its plain version's on the card
+DENSE_REL = 1e-12
+# Q1's sums and averages on the card against the CPU run, which adds a
+# group's ~1.7M rows in row order (rounding up to ~n eps, 2e-10): the
+# benchmark's limit on Q1's agg_rel_gap
+Q1_REL = 1e-9
+DENSE_REPEATS = 10         # launches held bit-identical to the first
+
+
+def q1_columns(rng, n, live, dev):
+    """Q1's group-by input as its plan hands it over: n rows of capacity,
+    the first `live` kept; l_returnflag and l_linestatus int8 codes of 3
+    and 2 values (a stale 7 past the live rows), five float64 columns."""
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+
+    def codes(k):
+        c = torch.randint(0, k, (n,), generator=g, device=dev,
+                          dtype=torch.int8)
+        c[live:] = 7
+        return c
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=g, device=dev,
+                                           dtype=torch.float64)
+    return {"l_returnflag": codes(3), "l_linestatus": codes(2),
+            "l_quantity": torch.randint(1, 51, (n,), generator=g,
+                                        device=dev).double(),
+            "l_extendedprice": uniform(900.0, 105_000.0),
+            "l_discount": uniform(0.0, 0.1),
+            "disc_price": uniform(800.0, 100_000.0),
+            "charge": uniform(800.0, 110_000.0)}
+
+
+def dense_plan(cols, keys, aggs, num_rows, valid=None):
+    """H5's plan of a group-by of `cols`, over the domain its probe reads,
+    or None where the input needs the sort path."""
+    valid = valid or {}
+    plan = dense.request([(cols[k], valid.get(k)) for k in keys],
+                         {k: (v, valid.get(k)) for k, v in cols.items()},
+                         aggs, True, num_rows)
+    if plan is None:
+        return None
+    return plan.over(kernels.domain_probe(plan.keys, plan.row_ok,
+                                          num_rows).tolist())
+
+
+def same_dense(got, want, plan, what, rel=0.0):
+    """H5's outputs against its plain version's over the groups: the group
+    count, `live`, keys, counts and validity exact; float sums and
+    averages within `rel` of the plain version's (exact where 0). Returns
+    the largest absolute error."""
+    (go, gk, gl, gg), (wo, wk, wl, wg) = got, want
+    g = int(wg)
+    if int(gg) != g:
+        fail(f"{what}: {int(gg)} groups vs {g}")
+    exact(gl[:g].cpu(), wl[:g].cpu(), f"{what} live")
+    err = 0.0
+    for i, (a, b) in enumerate(zip(go, wo)):
+        a, b = a[:g].cpu(), b[:g].cpu()
+        if rel and a.is_floating_point() and a.dtype == b.dtype:
+            diff = (a - b).abs()
+            if not bool((diff <= rel * b.abs()).all()):
+                fail(f"{what} output {i}: max error {float(diff.max())}")
+            err = max(err, float(diff.max()) if g else 0.0)
+        else:
+            exact(a, b, f"{what} output {i}")
+    for i, (a, b) in enumerate(zip(gk, wk)):
+        if (a is None) != (b is None):
+            fail(f"{what} validity {i}: one side has none")
+        if a is not None:
+            exact(a[:g].cpu(), b[:g].cpu(), f"{what} validity {i}")
+    return err
+
+
+def check_dense_edges(rng, dev):
+    """The probe and H5 at the edges of their tiles: every key dtype,
+    aligned and off 16 bytes, dead rows with stale keys, null keys; H5's
+    generic instance over 1 to 8 slots, one and two keys, a nullable
+    float32 column, int32 sums, sums of quarters (exact in any order)."""
+    for i, m in enumerate(EDGE_SIZES):
+        live = torch.tensor(m - m // 7, dtype=torch.int32, device=dev)
+        probed = []
+        for dt in (torch.int8, torch.int16, torch.int32, torch.int64):
+            k = torch.as_tensor(rng.integers(-100, 100, m + 1),
+                                device=dev).to(dt)
+            probed.append(k[1:] if (i + len(probed)) % 2 else k[:m])
+        ok = torch.as_tensor(rng.random(m) < 0.9, device=dev)
+        for row_ok in (None, ok):
+            exact(kernels.domain_probe(probed, row_ok, live).cpu(),
+                  kernels.domain_probe_plain(probed, row_ok, live).cpu(),
+                  f"domain_probe n={m} row_ok={row_ok is not None}")
+        slots = i % 8 + 1
+        two = slots % 2 == 0 and slots > 2
+        span0 = slots // 2 if two else slots
+        cols = {"k0": torch.as_tensor(rng.integers(0, span0, m) - 3,
+                                      device=dev).to(torch.int16),
+                "k1": torch.as_tensor(rng.integers(0, 2, m),
+                                      device=dev).to(torch.int8),
+                "f64": torch.as_tensor(rng.integers(-4000, 4000, m) / 4,
+                                       device=dev),
+                "f32": torch.as_tensor(rng.integers(-4000, 4000, m) / 4,
+                                       device=dev).float(),
+                "i32": torch.as_tensor(rng.integers(-9, 9, m),
+                                       device=dev).to(torch.int32)}
+        cols["k0"][int(live):] = 100
+        aggs = [("f64", "sum", "s"), ("f64", "avg", "a"), ("f32", "sum", "t"),
+                ("f32", "count", "c"), ("i32", "sum", "i"),
+                ("i32", "avg", "j")]
+        keys = ("k0", "k1") if two else ("k0",)
+        plan = dense_plan(cols, keys, aggs, live, {"f32": ok})
+        if plan is None:
+            fail(f"dense_groupby n={m}: a domain of {slots} slots took the "
+                 "sort path")
+        same_dense(kernels.dense_groupby(plan),
+                   kernels.dense_groupby_plain(plan), plan,
+                   f"dense_groupby n={m} slots={plan.slots}")
+
+
+def phase_dense(rng, dev):
+    """The probe and H5 at Q1's shape, each held to its plain version, H5's
+    repeats bit-identical, then timed. Returns the stats of both."""
+    check_dense_edges(rng, dev)
+    cols = q1_columns(rng, N_Q1, N_Q1_LIVE, dev)
+    live = torch.tensor(N_Q1_LIVE, dtype=torch.int32, device=dev)
+    keys = [cols[k] for k in Q1_KEYS]
+    exact(kernels.domain_probe(keys, None, live).cpu(),
+          kernels.domain_probe_plain(keys, None, live).cpu(),
+          "domain_probe at Q1's shape")
+    plan = dense_plan(cols, Q1_KEYS, Q1_AGGS, live)
+    if plan is None or plan.slots != 6 or len(plan.accs) != 6:
+        fail(f"dense_groupby: Q1's plan is not 6 slots x 6 accumulators")
+    got = kernels.dense_groupby(plan)
+    err = same_dense(got, kernels.dense_groupby_plain(plan), plan,
+                     "dense_groupby at Q1's shape", DENSE_REL)
+    for r in range(DENSE_REPEATS):
+        same_dense(kernels.dense_groupby(plan), got, plan,
+                   f"dense_groupby repeat {r}")
+    print(f"dense_groupby: {DENSE_REPEATS} repeats at Q1's shape "
+          "bit-identical", flush=True)
+    key_bytes = sum(k.element_size() for k in keys)
+    val_bytes = sum(a.values.element_size() for a in plan.accs
+                    if a.values is not None)
+    shape = (f"{N_Q1_LIVE} live rows of {N_Q1}, 2 int8 keys, 5 float64 "
+             "columns")
+    stats = {}
+    for name, run, plain, moved in (
+            ("domain_probe",
+             lambda: kernels.domain_probe(keys, None, live),
+             lambda: kernels.domain_probe_plain(keys, None, live),
+             N_Q1_LIVE * key_bytes),
+            ("dense_groupby", lambda: kernels.dense_groupby(plan),
+             lambda: kernels.dense_groupby_plain(plan),
+             N_Q1_LIVE * (key_bytes + val_bytes))):
+        dev_ms, acts = one_launch_ms(run, name)
+        print(f"{name}: device activities per call {acts}", flush=True)
+        stats[name] = dict(
+            max_abs_err=err if name == "dense_groupby" else 0.0,
+            ms=cuda_ms(run), profiler_ms=dev_ms, host_ms=host_ms(run),
+            plain_ms=cuda_ms(plain), library_ms=None,
+            bound_ms=bound_ms(moved), bound_by="bytes",
+            shape=shape + ("; 6 slots x 6 accumulators"
+                           if name == "dense_groupby" else ""))
+    return stats
+
+
+# -- the dense path -----------------------------------------------------------
+
+def make_q1_data(seed=0):
+    """Q1's lineitem columns as numpy, N_FACT rows: ship dates over the
+    seven years, the two flags as int8 codes, the measures as float64."""
+    rng = np.random.default_rng(seed)
+    n = N_FACT
+    price = rng.uniform(900.0, 105_000.0, n)
+    disc = rng.integers(0, 11, n) / 100
+    tax = rng.integers(0, 9, n) / 100
+    return {"l_shipdate": rng.integers(8036, 10562, n).astype(np.int32),
+            "l_returnflag": rng.integers(0, 3, n).astype(np.int8),
+            "l_linestatus": rng.integers(0, 2, n).astype(np.int8),
+            "l_quantity": rng.integers(1, 51, n).astype(np.float64),
+            "l_extendedprice": price, "l_discount": disc,
+            "disc_price": price * (1 - disc),
+            "charge": price * (1 - disc) * (1 + tax)}
+
+
+def run_dense_path(data, device):
+    """Q1's filter, group-by (the dense path: a probe and H5) and order_by
+    on `device`; returns (results, per-op timings)."""
+    t = Table.from_dict(data, device=device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    sync()
+    times = {}
+
+    def timed(name, rows_in, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times[name] = (rows_in, time.perf_counter() - t0)
+        return out
+
+    filt = timed("q1_filter", t.capacity, lambda: ops.filter_table(
+        t, ops.compare_scalar(t["l_shipdate"], 10561 - 90, "le")))
+    gb = timed("q1_groupby", filt.capacity,
+               lambda: ops.groupby(filt, list(Q1_KEYS), Q1_AGGS).compact())
+    out = timed("q1_order_by", gb.capacity,
+                lambda: gb.gather(ops.order_by(gb, list(Q1_KEYS))))
+    return dict(filt=filt, gb=out), times
+
+
+def check_dense_path(gpu, cpu):
+    compare_tables(gpu["filt"], cpu["filt"], "q1 filter")
+    floats = [spec[2] for spec in Q1_AGGS if spec[1] != "count"]
+    compare_tables(gpu["gb"], cpu["gb"], "q1 groupby",
+                   {name: (Q1_REL, 0.0) for name in floats})
+    groups = gpu["gb"].compact().capacity
+    if groups != 6:
+        fail(f"q1 groupby: {groups} groups, not 6")
 
 
 # -- the main path ----------------------------------------------------------
@@ -2042,6 +2288,21 @@ def check_fault_examples(dev):
     check_c7_examples(dev, col, same)
 
 
+# the aggregates each group-by path takes: a min sends a group-by over a
+# one-slot key to the sort path
+GROUPBY_PATHS = (((), "groupby.dense"), ((("v", "min", "m"),),
+                                         "groupby.sort"))
+
+
+def on_path(path, fn):
+    """fn(), a group-by that must take `path` (a tracing counter)."""
+    tracing.reset_counters()
+    out = fn()
+    if tracing.counters().get(path) != 1:
+        fail(f"a group-by did not take {path}: {tracing.counters()}")
+    return out
+
+
 def check_c7_examples(dev, col, same):
     """C7: a denormal is zero where it enters arithmetic, a sum or a
     widening; C8: a bitwise op on floats raises TypeError."""
@@ -2065,12 +2326,16 @@ def check_c7_examples(dev, col, same):
         same(ops.prefixsum(c).data[-1:], [0.0], f"C7 prefixsum of 300 {d}")
         T = Table.from_dict({"k": np.zeros(300, np.int32),
                              "v": np.full(300, d, dt)}, device=dev)
-        same(ops.groupby(T, ["k"], [("v", "sum", "s")])["s"].data[:1],
-             [0.0], f"C7 groupby sum of 300 {d}")
+        for extra, path in GROUPBY_PATHS:
+            same(on_path(path, lambda: ops.groupby(
+                T, ["k"], [("v", "sum", "s"), *extra]))["s"].data[:1],
+                [0.0], f"C7 groupby sum of 300 {d} ({path})")
     T = Table.from_dict({"k": np.zeros(2, np.int32),
                          "v": np.full(2, 1e-40, f32)}, device=dev)
-    same(ops.groupby(T, ["k"], [("v", "avg", "a")])["a"].data[:1], [0.0],
-         "C7 groupby avg")
+    for extra, path in GROUPBY_PATHS:
+        same(on_path(path, lambda: ops.groupby(
+            T, ["k"], [("v", "avg", "a"), *extra]))["a"].data[:1], [0.0],
+            f"C7 groupby avg ({path})")
     W = Table.from_dict({"p": np.zeros(4, np.int32),
                          "o": np.arange(4, dtype=np.int32),
                          "v": np.array([1e-40, 1e-40, -1e-40, 1e-40], f32)},
@@ -2601,24 +2866,28 @@ def main(argv=None):
 
     rng = np.random.default_rng(1)
     stats = {}
-    for name, phase in (("compact", phase_compact), ("scan", phase_scan),
-                        ("seg_scan", phase_seg_scan),
-                        ("expand_fill", phase_expand)):
+    for names, phase in ((("compact",), phase_compact),
+                         (("scan",), phase_scan),
+                         (("seg_scan",), phase_seg_scan),
+                         (("expand_fill",), phase_expand),
+                         (("domain_probe", "dense_groupby"), phase_dense)):
         t0 = time.perf_counter()
-        stats[name] = phase(rng, dev)
-        st = stats[name]
-        print(f"kernel {name}: max_abs_err={st['max_abs_err']} "
-              f"ms={st['ms']:.4f} profiler_ms={st['profiler_ms']} "
-              f"host_ms={st['host_ms']:.4f} "
-              f"plain_ms={st['plain_ms']:.4f} bound_ms={st['bound_ms']:.4f} "
-              f"({st['shape']}; {card}; phase "
-              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+        got = phase(rng, dev)
+        stats.update(got if len(names) > 1 else {names[0]: got})
+        for name in names:
+            st = stats[name]
+            print(f"kernel {name}: max_abs_err={st['max_abs_err']} "
+                  f"ms={st['ms']:.4f} profiler_ms={st['profiler_ms']} "
+                  f"host_ms={st['host_ms']:.4f} "
+                  f"plain_ms={st['plain_ms']:.4f} "
+                  f"bound_ms={st['bound_ms']:.4f} ({st['shape']}; {card}; "
+                  f"phase {time.perf_counter() - t0:.1f} s)", flush=True)
 
     check_faults(dev, card)
 
     data = make_data(0)
     (gpu, times), launches = drive("main", run_main_path, data, dev, card)
-    missing = [k for k in SOURCES if launches[k] == 0]
+    missing = [k for k in MAIN_KERNELS if launches[k] == 0]
     if missing:
         fail(f"main path launched no {missing}")
     t0 = time.perf_counter()
@@ -2628,6 +2897,18 @@ def main(argv=None):
     check_main_path(gpu, cpu, dev)
     print("main path: GPU results match the CPU run", flush=True)
     del gpu, cpu
+
+    qdata = make_q1_data(0)
+    (qgpu, qtimes), qlaunches = drive("dense", run_dense_path, qdata, dev,
+                                      card)
+    if (qlaunches["domain_probe"], qlaunches["dense_groupby"],
+            qlaunches["seg_scan"]) != (1, 1, 0):
+        fail(f"dense path: not one probe and one H5 launch, no scan "
+             f"({qlaunches})")
+    qcpu, _ = run_dense_path(qdata, torch.device("cpu"))
+    check_dense_path(qgpu, qcpu)
+    print("dense path: GPU results match the CPU run", flush=True)
+    del qgpu, qcpu, qdata
 
     adata = make_analytic_data(0)
     (agpu, atimes, W), alaunches = drive("analytic", run_analytic_path,
@@ -2739,11 +3020,12 @@ def main(argv=None):
 
     pipeline = {op: {"rows_in": rows, "seconds": secs,
                      "rows_per_s": rows / secs}
-                for op, (rows, secs) in {**times, **atimes, **btimes,
-                                         **dtimes}.items()}
+                for op, (rows, secs) in {**times, **qtimes, **atimes,
+                                         **btimes, **dtimes}.items()}
     print(json.dumps({"pipeline": pipeline, "card": card}), flush=True)
-    paths = {"main": launches, "analytic": alaunches, "abi": blaunches,
-             "distributed": dlaunches, "processes": glaunches}
+    paths = {"main": launches, "dense": qlaunches, "analytic": alaunches,
+             "abi": blaunches, "distributed": dlaunches,
+             "processes": glaunches}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],

@@ -2,7 +2,16 @@
 
 Counterpart of `libgdf_tpu/ops/groupby.py` (≅ gdf_group_by_{sum,min,max,
 avg,count}, libgdf/src/sqls_ops.cu:1426-1487, and the sort path of
-sqls_rtti_comp.hpp:400-660), with the same algorithm:
+sqls_rtti_comp.hpp:400-660). Two paths, chosen from the input alone:
+
+- the dense path, where every key is an integer column (int8 .. int64,
+  date32, bool), no key is nullable under `dropna=False`, every aggregate
+  is sum, count or avg, and the keys' live values span a domain of at
+  most 8 slots with at most 8 accumulators a slot: a probe reads each
+  key's min and max over the live rows whose keys are all valid (the
+  group-by's one host read, `groupby.domain`), then H5 aggregates every
+  row into its slot's accumulators in one pass (ops/kernels/dense.py);
+- the sort path, for every other input, with the JAX package's algorithm:
 
     sort:       key flags and encodings packed into 64-bit words; one
                 stable sort carries every aggregated column along;
@@ -12,6 +21,8 @@ sqls_rtti_comp.hpp:400-660), with the same algorithm:
     extract:    one compaction (H1) keeps the group-last rows; keys are
                 decoded from the sorted words.
 
+Each group-by counts its path (`groupby.dense` / `groupby.sort`) in
+`utils.tracing.counters()` and runs inside the span of that name.
 Output rows come sorted by key. Null semantics are the JAX package's
 (pandas-like): `dropna=True` drops null-key rows, `dropna=False` makes each
 null-key row a group of its own (NULL != NULL); aggregates skip null
@@ -34,9 +45,10 @@ from ..core.column import Column
 from ..core.dtypes import DtypeInfo, GDFDtype, dtype_from_numpy
 from ..core.errors import GDFStatus, require
 from ..core.table import Table
-from ..utils.tracing import host_sync, spanned
+from ..utils.tracing import count, host_sync, span, spanned
 from .compaction import compact_arrays
 from .engine import multi_sort, seg_scan_max, seg_scan_min, seg_scan_sum
+from .kernels import dense
 from .sort import (bit_field_offsets, pack_bit_fields, radix_bits,
                    radix_decode, radix_encode, radix_from_bits, radix_width,
                    unpack_bit_field)
@@ -70,9 +82,54 @@ def groupby(table: Table, key_names: Sequence[str], aggs: Sequence[tuple],
 
 
 def _groupby_impl(table: Table, key_names, aggs, dropna: bool) -> Table:
+    key_cols = [table.column(k) for k in key_names]
+    plan = _dense_plan(table, key_cols, aggs, dropna)
+    if plan is not None:
+        count("groupby.dense")
+        with span("libgdf.groupby.dense"):
+            return _dense_groupby(plan, key_names, key_cols, aggs)
+    count("groupby.sort")
+    with span("libgdf.groupby.sort"):
+        return _sort_groupby(table, key_names, key_cols, aggs, dropna)
+
+
+def _dense_plan(table: Table, key_cols, aggs, dropna: bool):
+    """The dense path's plan where the input allows it and the keys' live
+    values span at most dense.MAX_SLOTS slots, else None. A dense-eligible
+    input costs one probe and one host read, in either path."""
+    names = {spec[0] for spec in aggs}
+    plan = dense.request(
+        [(c.data, c.valid) for c in key_cols],
+        {n: (table.column(n).data, table.column(n).valid) for n in names},
+        aggs, dropna, table.num_rows)
+    if plan is None:
+        return None
+    bounds = dense.domain_probe(plan.keys, plan.row_ok, plan.num_rows)
+    with host_sync("groupby.domain"):      # the group-by's one host read
+        bounds = bounds.tolist()
+    return plan.over(bounds)
+
+
+def _dense_groupby(plan, key_names, key_cols, aggs) -> Table:
+    outs, oks, live, groups = dense.dense_groupby(plan)
+    cols = [Column(data=d, valid=None if c.valid is None else live,
+                   info=c.info, name=name)
+            for name, c, d in zip(key_names, key_cols, outs)]
+    for spec, d, ok in zip(aggs, outs[len(key_cols):], oks[len(key_cols):]):
+        op = spec[1]
+        info = {"count": _I64, "avg": _F64}.get(op) or DtypeInfo(
+            dtype_from_numpy(d.dtype))
+        cols.append(Column(data=d, valid=live if ok is None else ok,
+                           info=info,
+                           name=spec[2] if len(spec) > 2
+                           else f"{op}_{spec[0]}"))
+    return Table.from_columns(cols, num_rows=groups)
+
+
+def _sort_groupby(table: Table, key_names, key_cols, aggs,
+                  dropna: bool) -> Table:
     n = table.capacity
     dev = table.device
-    key_cols = [table.column(k) for k in key_names]
 
     # Dropped rows sort last; with dropna=False each null-key row is its
     # own group (gdf_table.cuh:588-591).
@@ -133,9 +190,7 @@ def _groupby_impl(table: Table, key_names, aggs, dropna: bool) -> Table:
 
     # Group boundaries (≅ reduce_by_key's equality predicate).
     new_group = torch.zeros(n, dtype=torch.bool, device=dev)
-    if n:
-        with host_sync("groupby.new_group"):    # a blocking copy
-            new_group[0] = True
+    new_group[:1].fill_(True)          # on the device: no host copy
     for k in s_enc:
         new_group[1:] |= k[1:] != k[:-1]
     if s_key_null:

@@ -11,14 +11,19 @@ several threads launch at once.
   H2 scan         scan.py     <- pallas/scan.py (value scans)
   H3 seg_scan     scan.py     <- pallas/scan.py (pair, 64-bit, f64, sel64)
   H4 expand_fill  expand.py   <- pallas/expand.py
+  H5 dense_groupby dense.py   <- none: a group-by over a small integer key
+                                 domain without a sort (with domain_probe)
 """
 from ._lib import COUNT_LOCK, build, count_launch, reset_counts
 from .compact import compact, compact_plain
+from .dense import (dense_groupby, dense_groupby_plain, domain_probe,
+                    domain_probe_plain)
 from .expand import SENTINEL, expand_fill, expand_fill_plain
 from .scan import scan, scan_plain, seg_scan, seg_scan_plain
 
 WRAPPERS = {"compact": compact, "scan": scan, "seg_scan": seg_scan,
-            "expand_fill": expand_fill}
+            "expand_fill": expand_fill, "domain_probe": domain_probe,
+            "dense_groupby": dense_groupby}
 
 
 def launch_counts() -> dict:
@@ -40,6 +45,7 @@ def reset_launch_counts() -> None:
 __all__ = [
     "build", "count_launch", "compact", "compact_plain", "scan",
     "scan_plain", "seg_scan", "seg_scan_plain", "expand_fill",
-    "expand_fill_plain", "SENTINEL", "WRAPPERS", "launch_counts",
+    "expand_fill_plain", "SENTINEL", "dense_groupby", "dense_groupby_plain",
+    "domain_probe", "domain_probe_plain", "WRAPPERS", "launch_counts",
     "reset_launch_counts",
 ]

@@ -47,6 +47,11 @@ _SIGNATURES = {
     "gdf_compact": (_I, [_P, _I64, _I, _PP, _PP, _PI, _P, _P, _I64, _P]),
     "gdf_expand_max_words": (_I, []),
     "gdf_expand_fill": (_I, [_P, _I64, _I64, _I, _PP, _PP, _PI, _P]),
+    "gdf_dense_plan_bytes": (_I64, []),
+    "gdf_domain_probe_scratch_bytes": (_I64, [_I64, _I, _PI]),
+    "gdf_domain_probe": (_I, [_P, _P, _P, _I64, _P]),
+    "gdf_dense_groupby_scratch_bytes": (_I64, [_I, _I, _I64, _PI]),
+    "gdf_dense_groupby": (_I, [_I, _P, _P, _I64, _P]),
     # the cost probes (libgdf_tpu_torch/probes/)
     "gdf_probe_tile_sort_clusters": (_I, [_PI]),
     "gdf_probe_tile_sort": (_I, [_P, _P, _P, _P, _I64, _P]),

@@ -15,7 +15,9 @@ per-operator colors, src/nvtx_utils.h:17-66).
   (`spanned`), `engine.multi_sort` opens `libgdf.sort`.
 - `host_sync(site)` wraps each place where the host waits on the device
   (a value read to the host, an implicit sync): it counts the read, always,
-  and spans it `libgdf.sync.<site>`. `counters()` reads the counts.
+  and spans it `libgdf.sync.<site>`. `count(event)` counts the path an
+  operator took (the group-by's `groupby.dense` / `groupby.sort`).
+  `counters()` reads the counts.
 - The ABI's ranges (`range_push` / `range_pop`) are a
   `torch.profiler.record_function` each, and an NVTX range where CUDA is
   available, for tools that read NVTX. Colors are kept as labels.
@@ -64,6 +66,7 @@ def spanned(name: str):
 
 _sync_lock = threading.Lock()
 _syncs: Counter = Counter()
+_events: Counter = Counter()
 
 
 def host_sync(site: str):
@@ -80,18 +83,27 @@ def host_sync(site: str):
     return span("libgdf.sync." + site)
 
 
+def count(event: str) -> None:
+    """Count one `event`, a path an operator took (`groupby.dense`,
+    `groupby.sort`), under the lock of the host-sync counts."""
+    with _sync_lock:
+        _events[event] += 1
+
+
 def counters() -> dict:
-    """{"host_sync": every count, "host_sync.<site>": each site's} since
-    the last `reset_counters()`."""
+    """{"host_sync": every count, "host_sync.<site>": each site's, and
+    "<event>": each counted event's} since the last `reset_counters()`."""
     with _sync_lock:
         out = {"host_sync": sum(_syncs.values())}
         out.update((f"host_sync.{s}", n) for s, n in sorted(_syncs.items()))
+        out.update(sorted(_events.items()))
     return out
 
 
 def reset_counters() -> None:
     with _sync_lock:
         _syncs.clear()
+        _events.clear()
 
 
 _stack = threading.local()

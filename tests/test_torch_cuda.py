@@ -1600,3 +1600,214 @@ def test_window_running_min_nan_across_tiles(dev, first_nan):
         # np.minimum.accumulate propagates NaN, as the reference does
         np.testing.assert_array_equal(got["min"].data.cpu().numpy(),
                                       np.minimum.accumulate(cols["v"]))
+
+
+# ---------------------------------------------------------------------------
+# H5 dense_groupby and its domain probe
+# ---------------------------------------------------------------------------
+
+def _groupby_module():
+    import importlib
+    return importlib.import_module("libgdf_tpu_torch.ops.groupby")
+
+
+def _q1_table(dev, n, live, seed):
+    """Q1's group-by input at scale: l_returnflag, l_linestatus as int8 of
+    3 and 2 values on the live rows (stale codes 7 past them), the five
+    float64 columns, `live` rows of capacity `n`."""
+    from libgdf_tpu_torch import Table
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def codes(k):
+        c = torch.randint(0, k, (n,), generator=g, device=dev,
+                          dtype=torch.int8)
+        c[live:] = 7
+        return c
+
+    def prices(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=g, device=dev,
+                                           dtype=torch.float64)
+    cols = {"l_returnflag": codes(3), "l_linestatus": codes(2),
+            "l_quantity": torch.randint(1, 51, (n,), generator=g,
+                                        device=dev).double(),
+            "l_extendedprice": prices(900.0, 105_000.0),
+            "l_discount": prices(0.0, 0.1),
+            "disc_price": prices(800.0, 100_000.0),
+            "charge": prices(800.0, 110_000.0)}
+    return Table.from_dict(cols).with_num_rows(torch.tensor(live,
+                                                            device=dev))
+
+
+def _q1_plan(t):
+    from gdfbench.queries import q1
+    G = _groupby_module()
+    keys = [t.column(k) for k in q1.KEYS]
+    plan = G._dense_plan(t, keys, q1.AGGS, True)
+    assert plan is not None and plan.slots == 6
+    return plan
+
+
+def _same_dense(got, want, plan, exact):
+    (go, gk, gl, gg), (wo, wk, wl, wg) = got, want
+    g = int(wg)
+    assert int(gg) == g and torch.equal(gl[:g].cpu(), wl[:g].cpu())
+    assert bool(gl[:g].all())
+    for o, a, b in zip(plan.outs, go, wo):
+        a, b = a[:g].cpu(), b[:g].cpu()
+        assert a.dtype == b.dtype
+        if exact or not a.dtype.is_floating_point:
+            assert torch.equal(a, b), (o, a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-12, atol=0)
+    for a, b in zip(gk, wk):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a[:g].cpu(), b[:g].cpu())
+
+
+def test_dense_groupby_matches_plain_at_q1_scale(dev):
+    """H5 against its plain version at 16M live rows of a 17M capacity:
+    6 slots, Q1's 8 aggregates (5 float64 sums, the rows)."""
+    plan = _q1_plan(_q1_table(dev, 17_000_003, 16_777_259, 5))
+    _same_dense(kernels.dense_groupby(plan),
+                kernels.dense_groupby_plain(plan), plan, exact=False)
+
+
+def test_dense_groupby_is_bit_identical_run_to_run(dev):
+    plan = _q1_plan(_q1_table(dev, 16_777_216, 16_000_000, 6))
+    first = kernels.dense_groupby(plan)
+    for _ in range(3):
+        _same_dense(kernels.dense_groupby(plan), first, plan, exact=True)
+
+
+def test_dense_groupby_launches_once_a_q1_groupby(dev):
+    """Each Q1 group-by is one probe and one H5 launch, and none of the
+    sort path's kernels."""
+    from gdfbench.queries import q1
+    from libgdf_tpu_torch import ops
+    t = _q1_table(dev, 100_003, 99_000, 7)
+    kernels.reset_launch_counts()
+    for i in range(3):
+        ops.groupby(t, q1.KEYS, q1.AGGS)
+        counts = kernels.launch_counts()
+        assert counts["dense_groupby"] == counts["domain_probe"] == i + 1
+        assert counts["seg_scan"] == counts["compact"] == 0
+
+
+def _quarters(rng, n, dtype, dev, specials=False):
+    v = rng.integers(-4000, 4000, n) / 4
+    if specials:
+        tiny = np.finfo(np.float32 if dtype == torch.float32
+                        else np.float64).tiny
+        v[::7] = tiny / 8
+        v[3::11] = -tiny / 2
+    return torch.as_tensor(v, device=dev).to(dtype)
+
+
+DENSE_CASES = ["int8", "int16", "int32", "int64", "date32", "one_slot",
+               "eight_slots", "const_key", "nullable", "null_keys",
+               "denormals", "int8_wrap", "unaligned", "no_live_row",
+               "over_the_cap"]
+
+
+@pytest.mark.parametrize("case", DENSE_CASES)
+def test_dense_groupby_matches_the_sort_path(dev, case):
+    """The group-by on the card, both paths over the same table (sums of
+    quarters, exact in any order): keys, sums, counts, averages and
+    validity equal; the dispatch as the case wants it."""
+    from libgdf_tpu_torch import Column, GDFDtype, Table
+    from libgdf_tpu_torch.utils import tracing
+    G = _groupby_module()
+    rng = np.random.default_rng(DENSE_CASES.index(case))
+    n, live = 100_003, 99_001
+    kdt = {"int16": torch.int16, "int32": torch.int32,
+           "int64": torch.int64, "date32": torch.int32}.get(case,
+                                                           torch.int8)
+    span = {"one_slot": 1, "eight_slots": 8, "over_the_cap": 9}.get(case, 3)
+    k0 = torch.as_tensor(rng.integers(0, span, n) - 40, device=dev).to(kdt)
+    k1 = torch.as_tensor(rng.integers(0, 1 if span > 3 else 2, n) + 5,
+                         device=dev).to(kdt)
+    if case == "const_key":
+        k0.fill_(9)
+    k0[live:] = 100                 # stale keys past the live rows
+    vals = {"f64": _quarters(rng, n, torch.float64, dev, case == "denormals"),
+            "f32": _quarters(rng, n, torch.float32, dev, case == "denormals"),
+            "i32": torch.as_tensor(rng.integers(-9, 9, n), device=dev
+                                   ).to(torch.int32),
+            "i8": torch.as_tensor(rng.integers(-128, 128, n), device=dev
+                                  ).to(torch.int8)}
+    if case == "int8_wrap":
+        vals["i8"].fill_(100)
+    cols = [Column.from_array(k0, name="k0", gdf_dtype=GDFDtype.DATE32
+                              if case == "date32" else None),
+            Column.from_array(k1, name="k1")]
+    for name, v in vals.items():
+        valid = None
+        if case == "nullable":
+            valid = torch.as_tensor(rng.random(n) < 0.8, device=dev)
+        if case == "unaligned":
+            v = torch.cat([v[:1], v])[1:]          # a view off 16 bytes
+        cols.append(Column.from_array(v, valid=valid, name=name))
+    if case == "null_keys":
+        cols[0] = Column.from_array(k0, valid=torch.as_tensor(
+            rng.random(n) < 0.9, device=dev), name="k0")
+    t = Table.from_columns(cols, num_rows=torch.tensor(
+        0 if case == "no_live_row" else live, device=dev))
+    aggs = [("f64", "sum", "s64"), ("f64", "avg", "a64"),
+            ("f32", "sum", "s32"), ("f32", "count", "c32"),
+            ("f32", "avg", "a32"), ("i32", "avg", "ai"),
+            ("i8", "sum", "s8"), ("i8", "count", "c8"), ("i8", "avg", "a8"),
+            ("k1", "count", "n")]
+    if case == "nullable":
+        aggs = aggs[:6]             # 8 accumulators with the validity counts
+    keys = ["k0", "k1"]
+    tracing.reset_counters()
+    got = G._groupby_impl(t, keys, aggs, True)
+    dense_wanted = case not in ("over_the_cap", "no_live_row")
+    assert tracing.counters().get("groupby.dense", 0) == int(dense_wanted)
+    want = G._sort_groupby(t, keys, [t.column(k) for k in keys], aggs, True)
+    g = int(want.num_rows)
+    assert int(got.num_rows) == g and got.capacity == want.capacity
+    for a, b in zip(got.columns, want.columns):
+        assert (a.name, a.info, a.data.dtype) == (b.name, b.info, b.data.dtype)
+        assert (a.valid is None) == (b.valid is None)
+        va = None if a.valid is None else a.valid[:g].cpu()
+        vb = None if b.valid is None else b.valid[:g].cpu()
+        if va is not None:
+            assert torch.equal(va, vb), a.name
+        da, db = a.data[:g].cpu(), b.data[:g].cpu()
+        if vb is not None:
+            da, db = da[vb], db[vb]
+        assert torch.equal(da, db), (a.name, da, db)
+
+
+def test_dense_groupby_host_waits_are_its_counted_read(dev):
+    """torch's sync debug mode: the dense path waits once (the domain read)
+    and a probed input that takes the sort path once; an input the probe
+    never sees (a min) not at all."""
+    import warnings
+    from libgdf_tpu_torch import ops
+    from libgdf_tpu_torch.utils import tracing
+    from libgdf_tpu_torch import Column
+    small = _q1_table(dev, 100_003, 99_000, 8)
+    wide = small.replace_column("l_returnflag", Column.from_array(
+        torch.arange(100_003, device=dev).to(torch.int32),
+        name="l_returnflag"))
+    cases = [(small, [("l_quantity", "sum", "s")], 1, "groupby.dense"),
+             (small, [("l_quantity", "min", "m")], 0, "groupby.sort"),
+             (wide, [("l_quantity", "sum", "s")], 1, "groupby.sort")]
+    for t, aggs, waits, path in cases:
+        torch.cuda.synchronize()
+        tracing.reset_counters()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                ops.groupby(t, ["l_returnflag", "l_linestatus"], aggs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = [w for w in seen
+                 if "called a synchronizing" in str(w.message)]
+        c = tracing.counters()
+        assert len(syncs) == c["host_sync"] == waits, (path, syncs, c)
+        assert c[path] == 1

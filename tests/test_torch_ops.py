@@ -233,3 +233,82 @@ def test_argsort_keys(rng, nkeys):
         np.testing.assert_array_equal(np_of(b), np_of(a))
     (s,) = teng.multi_sort([torch.as_tensor(keys[0])], 1, stable=False)
     np.testing.assert_array_equal(s.numpy(), np.sort(keys[0], kind="stable"))
+
+
+def _dense_case(rng, case):
+    """(columns, nulls, keys, aggs, dropna, num_rows, path) of one dense
+    group-by case; dead rows past num_rows hold keys outside the domain."""
+    n = N
+    kdt = {"int16": np.int16, "int32": np.int32, "int64": np.int64,
+           "date32": np.int32}.get(case, np.int8)
+    span = {"one_slot": 1, "at_the_cap": 8, "over_the_cap": 9}.get(case, 3)
+    cols = {"k": (rng.integers(0, span, n) - 2).astype(kdt),
+            "k2": rng.integers(7, 9 if span <= 4 else 8, n).astype(kdt),
+            "f32": rng.standard_normal(n).astype(np.float32),
+            "f64": rng.standard_normal(n),
+            "i8": rng.integers(-128, 128, n).astype(np.int8),
+            "i32": rng.integers(-1000, 1000, n).astype(np.int32)}
+    if case == "denormals":
+        cols["f32"][::3] = np.float32(1e-40)
+        cols["f64"][1::3] = -1e-310
+    if case == "int8_wraps":
+        cols["i8"][:] = 100
+    nulls = {}
+    if case == "nullable_values":
+        nulls = {c: rng.random(n) < 0.2 for c in ("f32", "f64", "i8")}
+    if case == "nullable_keys":
+        nulls = {"k": rng.random(n) < 0.1, "k2": rng.random(n) < 0.1}
+    num_rows = {"no_live_row": 0}.get(case, 450)
+    for name in ("k", "k2"):
+        cols[name][num_rows:] = 100     # stale keys in the dead rows
+    keys = ("k",) if case in ("one_key", "at_the_cap", "over_the_cap",
+                              "one_slot") else ("k", "k2")
+    aggs = (("f64", "sum", "sd"), ("f32", "sum", "sf"), ("i8", "sum", "s8"),
+            ("f64", "avg", "ad"), ("f32", "count", "cf"),
+            ("f32", "avg", "af"), ("i32", "avg", "ai"), ("k", "count", "n"))
+    if case == "avg_from_siblings":
+        aggs = (("f64", "sum", "sd"), ("f64", "count", "cd"),
+                ("f64", "avg", "ad"), ("i8", "sum", "s8"),
+                ("i8", "count", "c8"), ("i8", "avg", "a8"))
+    if case == "nullable_values":
+        aggs = (("f64", "sum", "sd"), ("f64", "avg", "ad"),
+                ("f32", "count", "cf"), ("i8", "sum", "s8"),
+                ("i8", "avg", "a8"))
+    dense = case not in ("over_the_cap", "no_live_row")
+    return cols, nulls, keys, aggs, num_rows, dense
+
+
+DENSE_CASES = ["int8", "int16", "int32", "int64", "date32", "one_key",
+               "one_slot", "at_the_cap", "over_the_cap", "nullable_keys",
+               "nullable_values", "denormals", "int8_wraps",
+               "avg_from_siblings", "no_live_row"]
+
+
+@pytest.mark.parametrize("case", DENSE_CASES)
+def test_groupby_dense_domain(rng, case):
+    """The dense path (H5's plain version) against libgdf_tpu's sort: small
+    integer key domains, dead rows with stale keys, nulls, denormals, a
+    wrapping int8 sum, averages alone and from siblings; over the cap and
+    with no live row, the sort path."""
+    from dataclasses import replace
+
+    import libgdf_tpu.core.dtypes as jdt
+    import libgdf_tpu_torch.core.dtypes as tdt
+    from libgdf_tpu_torch.utils import tracing
+    cols, nulls, keys, aggs, num_rows, dense = _dense_case(rng, case)
+    jt, tt = make_tables(cols, nulls, num_rows=num_rows)
+    if case == "date32":
+        jt = jt.replace_column("k", replace(
+            jt["k"], info=jdt.DtypeInfo(jdt.GDFDtype.DATE32)))
+        tt = tt.replace_column("k", replace(
+            tt["k"], info=tdt.DtypeInfo(tdt.GDFDtype.DATE32)))
+    jg = jax_op("groupby", jt, key_names=keys, aggs=aggs, dropna=True)
+    tracing.reset_counters()
+    tg = tops.groupby(tt, list(keys), aggs)
+    got = tracing.counters()
+    assert got.get("groupby.dense", 0) == int(dense)
+    assert got.get("groupby.sort", 0) == int(not dense)
+    assert int(tg.num_rows) == int(jg.num_rows)
+    tol = {"sd": F64_SUM, "ad": F64_SUM, "sf": F32_SUM, "af": F32_SUM,
+           "ai": F64_SUM, "a8": F64_SUM}
+    assert_tables_match(jg, tg, tol)

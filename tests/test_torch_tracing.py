@@ -98,6 +98,9 @@ def test_join_spans_nest_under_a_profiler():
     ("libgdf.op.add", "aten::add"),
     ("libgdf.op.mul", "aten::mul"),
     ("libgdf.op.groupby", "libgdf.sort"),
+    ("libgdf.op.groupby", "libgdf.groupby.dense"),
+    ("libgdf.op.groupby", "libgdf.groupby.sort"),
+    ("libgdf.groupby.sort", "libgdf.sort"),
     ("libgdf.op.order_by", "libgdf.sort"),
     ("libgdf.op.gather", "aten::index"),
 ])
@@ -106,6 +109,7 @@ def test_operator_spans(outer, inner):
         left, _ = tables()
         ops.compare_scalar(left["k"], 2, "le")
         run_plan()
+        ops.groupby(left, ["k"], [("v", "min")])     # the sort path
     assert inside(events(prof), outer, inner)
 
 
@@ -148,6 +152,7 @@ def _stencil():
 
 
 JOIN = {"join.key_change": 1, "join.total": 1, "join.unique_build": 1}
+PATHS = ("groupby.dense", "groupby.sort")     # counted events, not syncs
 
 
 @pytest.mark.parametrize("fn,want", [
@@ -155,7 +160,7 @@ JOIN = {"join.key_change": 1, "join.total": 1, "join.unique_build": 1}
     (lambda: run_join(dup_build=True), JOIN),
     (lambda: run_join().compact(), {**JOIN, "table.compact": 1}),
     (lambda: ops.groupby(tables()[0], ["k"], [("v", "sum")]),
-     {"groupby.new_group": 1}),
+     {"groupby.domain": 1, "groupby.dense": 1}),
     (lambda: ops.filter_table(tables()[0], ops.compare_scalar(
         tables()[0]["v"], 2.5, "lt")), {}),
     (lambda: to_numpy(ops.filter_table(tables()[0], ops.compare_scalar(
@@ -186,13 +191,15 @@ JOIN = {"join.key_change": 1, "join.total": 1, "join.unique_build": 1}
         "table_count", "table_count_tensor", "count_valid", "window_rows",
         "window_range"])
 def test_counter_counts_each_read_once(fn, want):
+    syncs = {k: v for k, v in want.items() if k not in PATHS}
     tracing.reset_counters()
     fn()
     got = tracing.counters()
-    assert got == {"host_sync": sum(want.values()),
-                   **{f"host_sync.{k}": v for k, v in want.items()}}
+    assert got == {"host_sync": sum(syncs.values()),
+                   **{f"host_sync.{k}": v for k, v in syncs.items()},
+                   **{k: v for k, v in want.items() if k in PATHS}}
     fn()
-    assert tracing.counters()["host_sync"] == 2 * sum(want.values())
+    assert tracing.counters()["host_sync"] == 2 * sum(syncs.values())
     tracing.reset_counters()
     assert tracing.counters() == {"host_sync": 0}
 
@@ -225,3 +232,74 @@ def test_counter_is_exact_across_threads():
     assert tracing.counters() == {
         "host_sync": len(JOIN) * n,
         **{f"host_sync.{site}": n for site in JOIN}}
+
+
+# -- the group-by's two paths ---------------------------------------------------
+
+def run_query(name: str) -> dict:
+    """One query of a benchmark cell's plan (gdfbench/queries) on a small
+    CPU table; the counters it moved."""
+    from gdfbench import mix, spec
+    from gdfbench.data import tpch
+    from gdfbench.harness import span_factory
+    cell = spec.cell(spec.load_benchmark(), name)
+    cell["config"]["scale_factor"] = 0.002
+    qmod = spec.query(cell["mix"]["query"])
+    state = qmod.prepare(tpch.generate(0.002, 7, 0, 1, "cpu"),
+                         cell["config"])
+    params = next(mix.stream(cell["mix"], 7))
+    tracing.reset_counters()
+    qmod.run(state, params, span_factory(False))
+    return tracing.counters()
+
+
+@pytest.mark.parametrize("name,path,syncs", [
+    ("tpch_sf10.q1", "groupby.dense", 2),
+    ("tpch_sf10.q3", "groupby.sort", 13)])
+def test_benchmark_plans_take_their_groupby_path(name, path, syncs):
+    """Q1's keys (two int8 codes, 6 slots) take the dense path, Q3's
+    (order keys, dates) the sort path; either group-by waits once, on the
+    probe's read, and the plans keep their host waits (2 and 13)."""
+    got = run_query(name)
+    other = "groupby.sort" if path == "groupby.dense" else "groupby.dense"
+    assert got[path] == 1 and other not in got
+    assert got["host_sync.groupby.domain"] == 1
+    assert "host_sync.groupby.new_group" not in got
+    assert got["host_sync"] == syncs
+
+
+def _key_table(float_key=False, null_key=False):
+    k = np.array([3, 1, 2, 3, 2, 1], np.float32 if float_key else np.int32)
+    nulls = {"k": np.array([0, 0, 1, 0, 0, 0], bool)} if null_key else None
+    return from_numpy({"k": k, "v": np.arange(6, dtype=np.float64)}, nulls,
+                      device="cpu")
+
+
+@pytest.mark.parametrize("table,aggs,dropna,path,syncs", [
+    (_key_table, [("v", "sum")], True, "groupby.dense", 1),
+    (lambda: _key_table(null_key=True), [("v", "sum")], True,
+     "groupby.dense", 1),
+    (lambda: _key_table(null_key=True), [("v", "sum")], False,
+     "groupby.sort", 0),
+    (lambda: _key_table(float_key=True), [("v", "sum")], True,
+     "groupby.sort", 0),
+    (_key_table, [("v", "min")], True, "groupby.sort", 0),
+    (_key_table, [("v", "sum"), ("v", "max")], True, "groupby.sort", 0),
+], ids=["dense", "null_key_dropped", "null_key_kept", "float_key", "min",
+        "sum_and_max"])
+def test_groupby_path_follows_the_input(table, aggs, dropna, path, syncs):
+    """A key nullable under dropna=False, a float key and a min / max force
+    the sort path without a probe (no host wait); the dense path reads the
+    probe once. Both give the same groups."""
+    t = table()
+    tracing.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = ops.groupby(t, ["k"], aggs, dropna=dropna)
+    got = tracing.counters()
+    assert got[path] == 1 and got["host_sync"] == syncs
+    assert inside(events(prof), "libgdf.op.groupby", "libgdf.groupby.") == [
+        "libgdf." + path]
+    ref = ops.groupby(t, ["k"], [("v", "min")] + list(aggs), dropna=dropna)
+    want, got_rows = to_numpy(ref), to_numpy(out)
+    for name, values in got_rows[0].items():
+        np.testing.assert_array_equal(values, want[0][name])
