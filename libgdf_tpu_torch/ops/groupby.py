@@ -22,7 +22,11 @@ sqls_rtti_comp.hpp:400-660). Two paths, chosen from the input alone:
                 decoded from the sorted words.
 
 Each group-by counts its path (`groupby.dense` / `groupby.sort`) in
-`utils.tracing.counters()` and runs inside the span of that name.
+`utils.tracing.counters()` and runs inside the span of that name. The sort
+path also adds its input capacity to `groupby.sort.rows`, and splits its
+time after the sort (`libgdf.sort`) into `libgdf.groupby.sort.scan` (the
+scans) and `libgdf.groupby.sort.extract` (the boundaries, the key decode
+and the compaction).
 Output rows come sorted by key. Null semantics are the JAX package's
 (pandas-like): `dropna=True` drops null-key rows, `dropna=False` makes each
 null-key row a group of its own (NULL != NULL); aggregates skip null
@@ -56,6 +60,8 @@ from .sort import (bit_field_offsets, pack_bit_fields, radix_bits,
 AGG_OPS = ("sum", "min", "max", "avg", "count", "count_distinct")
 _F64 = DtypeInfo(GDFDtype.FLOAT64)
 _I64 = DtypeInfo(GDFDtype.INT64)
+_SCAN = "libgdf.groupby.sort.scan"
+_EXTRACT = "libgdf.groupby.sort.extract"
 
 
 def _agg_identity(op: str, dtype: torch.dtype):
@@ -89,6 +95,7 @@ def _groupby_impl(table: Table, key_names, aggs, dropna: bool) -> Table:
         with span("libgdf.groupby.dense"):
             return _dense_groupby(plan, key_names, key_cols, aggs)
     count("groupby.sort")
+    count("groupby.sort.rows", table.capacity)
     with span("libgdf.groupby.sort"):
         return _sort_groupby(table, key_names, key_cols, aggs, dropna)
 
@@ -175,59 +182,61 @@ def _sort_groupby(table: Table, key_names, key_cols, aggs,
         agg_slots[col_name] = (dslot, vslot)
     res = multi_sort(operands, num_keys=nk)
 
-    s_words = res[:nk]
-    offs, _ = bit_field_offsets([f[1] for f in fields])
-    if drop is not None:
-        s_dropped = unpack_bit_field(s_words, offs[0], 1) != 0
-    else:
-        s_dropped = torch.zeros(n, dtype=torch.bool, device=dev)
-    s_enc = [radix_from_bits(unpack_bit_field(s_words, offs[key_field_idx[j]],
-                                              widths[j]), widths[j])
-             for j in range(len(key_cols))]
-    s_key_null = {j: unpack_bit_field(s_words, offs[key_field_idx[j] - 1],
-                                      1) != 0
-                  for j in range(len(key_cols)) if key_nullable[j]}
+    with span(_EXTRACT):
+        s_words = res[:nk]
+        offs, _ = bit_field_offsets([f[1] for f in fields])
+        if drop is not None:
+            s_dropped = unpack_bit_field(s_words, offs[0], 1) != 0
+        else:
+            s_dropped = torch.zeros(n, dtype=torch.bool, device=dev)
+        s_enc = [radix_from_bits(unpack_bit_field(
+            s_words, offs[key_field_idx[j]], widths[j]), widths[j])
+            for j in range(len(key_cols))]
+        s_key_null = {j: unpack_bit_field(
+            s_words, offs[key_field_idx[j] - 1], 1) != 0
+            for j in range(len(key_cols)) if key_nullable[j]}
 
-    # Group boundaries (≅ reduce_by_key's equality predicate).
-    new_group = torch.zeros(n, dtype=torch.bool, device=dev)
-    new_group[:1].fill_(True)          # on the device: no host copy
-    for k in s_enc:
-        new_group[1:] |= k[1:] != k[:-1]
-    if s_key_null:
-        s_null = torch.zeros(n, dtype=torch.bool, device=dev)
-        for flag in s_key_null.values():
-            s_null = s_null | flag
-        # a null-key row always starts and ends its own group
-        new_group = new_group | s_null
-        new_group[1:] |= s_null[:-1]
+        # Group boundaries (≅ reduce_by_key's equality predicate).
+        new_group = torch.zeros(n, dtype=torch.bool, device=dev)
+        new_group[:1].fill_(True)          # on the device: no host copy
+        for k in s_enc:
+            new_group[1:] |= k[1:] != k[:-1]
+        if s_key_null:
+            s_null = torch.zeros(n, dtype=torch.bool, device=dev)
+            for flag in s_key_null.values():
+                s_null = s_null | flag
+            # a null-key row always starts and ends its own group
+            new_group = new_group | s_null
+            new_group[1:] |= s_null[:-1]
 
-    scan_starts = new_group | s_dropped
-    is_last = torch.cat([scan_starts[1:],
-                         torch.ones(1, dtype=torch.bool, device=dev)])[:n]
-    keep = is_last & ~s_dropped
-    num_groups = keep.sum(dtype=torch.int32)
-    group_live = torch.arange(n, dtype=torch.int32, device=dev) < num_groups
+        scan_starts = new_group | s_dropped
+        is_last = torch.cat([scan_starts[1:],
+                             torch.ones(1, dtype=torch.bool, device=dev)])[:n]
+        keep = is_last & ~s_dropped
+        num_groups = keep.sum(dtype=torch.int32)
+        group_live = (torch.arange(n, dtype=torch.int32, device=dev)
+                      < num_groups)
 
-    out_arrays, builders = [], []
+        out_arrays, builders = [], []
 
-    def add_out(arrs, build):
-        out_arrays.append(arrs)
-        builders.append(build)
+        def add_out(arrs, build):
+            out_arrays.append(arrs)
+            builders.append(build)
 
-    for j, (name, c, enc) in enumerate(zip(key_names, key_cols, s_enc)):
-        has_null_flag = j in s_key_null
+        for j, (name, c, enc) in enumerate(zip(key_names, key_cols, s_enc)):
+            has_null_flag = j in s_key_null
 
-        def build_key(xs, c=c, kv=has_null_flag, name=name):
-            if kv:
-                valid = xs[1] & group_live
-            else:
-                valid = None if c.valid is None else group_live
-            return Column(data=xs[0], valid=valid, info=c.info, name=name)
+            def build_key(xs, c=c, kv=has_null_flag, name=name):
+                if kv:
+                    valid = xs[1] & group_live
+                else:
+                    valid = None if c.valid is None else group_live
+                return Column(data=xs[0], valid=valid, info=c.info, name=name)
 
-        arrs = [radix_decode(enc, c.data.dtype)]
-        if has_null_flag:
-            arrs.append(~s_key_null[j])
-        add_out(arrs, build_key)
+            arrs = [radix_decode(enc, c.data.dtype)]
+            if has_null_flag:
+                arrs.append(~s_key_null[j])
+            add_out(arrs, build_key)
 
     # AVG from sibling SUM and COUNT of the same column (≅ multi_pass_avg
     # reusing its results, groupby.cuh:308-419): no scans of its own; the
@@ -238,36 +247,40 @@ def _sort_groupby(table: Table, key_names, key_cols, aggs,
               for s in aggs if s[1] == "count"}
     deferred_avg = {}
 
-    for spec in aggs:
-        col_name, op = spec[0], spec[1]
-        out_name = spec[2] if len(spec) > 2 else f"{op}_{col_name}"
-        if op == "avg" and col_name in sums and col_name in counts:
-            deferred_avg[len(builders)] = (out_name, sums[col_name],
-                                           counts[col_name])
-            add_out([], None)
-            continue
-        dslot, vslot = agg_slots[col_name]
-        avalid = None if vslot is None else res[vslot]
-        arrs, build = _scan_agg(res[dslot], avalid, scan_starts, op,
-                                group_live, out_name)
-        add_out(arrs, build)
+    with span(_SCAN):
+        for spec in aggs:
+            col_name, op = spec[0], spec[1]
+            out_name = spec[2] if len(spec) > 2 else f"{op}_{col_name}"
+            if op == "avg" and col_name in sums and col_name in counts:
+                deferred_avg[len(builders)] = (out_name, sums[col_name],
+                                               counts[col_name])
+                add_out([], None)
+                continue
+            dslot, vslot = agg_slots[col_name]
+            avalid = None if vslot is None else res[vslot]
+            arrs, build = _scan_agg(res[dslot], avalid, scan_starts, op,
+                                    group_live, out_name)
+            add_out(arrs, build)
 
-    flat = [a for arrs in out_arrays for a in arrs]
-    compacted, _ = compact_arrays(flat, keep)
-    cols, i = [], 0
-    for arrs, build in zip(out_arrays, builders):
-        cnt = len(arrs)
-        cols.append(None if build is None else build(compacted[i:i + cnt]))
-        i += cnt
-    by_name = {c.name: c for c in cols if c is not None}
-    for pos, (out_name, s_name, c_name) in deferred_avg.items():
-        scol, ccol = by_name[s_name], by_name[c_name]
-        data = (flush_denormals(scol.data).to(torch.float64)
-                / ccol.data.clamp(min=1).to(torch.float64))
-        valid = group_live & (ccol.data > 0)
-        if scol.valid is not None:
-            valid = valid & scol.valid
-        cols[pos] = Column(data=data, valid=valid, info=_F64, name=out_name)
+    with span(_EXTRACT):
+        flat = [a for arrs in out_arrays for a in arrs]
+        compacted, _ = compact_arrays(flat, keep)
+        cols, i = [], 0
+        for arrs, build in zip(out_arrays, builders):
+            cnt = len(arrs)
+            cols.append(None if build is None
+                        else build(compacted[i:i + cnt]))
+            i += cnt
+        by_name = {c.name: c for c in cols if c is not None}
+        for pos, (out_name, s_name, c_name) in deferred_avg.items():
+            scol, ccol = by_name[s_name], by_name[c_name]
+            data = (flush_denormals(scol.data).to(torch.float64)
+                    / ccol.data.clamp(min=1).to(torch.float64))
+            valid = group_live & (ccol.data > 0)
+            if scol.valid is not None:
+                valid = valid & scol.valid
+            cols[pos] = Column(data=data, valid=valid, info=_F64,
+                               name=out_name)
     return Table.from_columns(cols, num_rows=num_groups)
 
 

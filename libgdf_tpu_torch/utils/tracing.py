@@ -15,8 +15,9 @@ per-operator colors, src/nvtx_utils.h:17-66).
   (`spanned`), `engine.multi_sort` opens `libgdf.sort`.
 - `host_sync(site)` wraps each place where the host waits on the device
   (a value read to the host, an implicit sync): it counts the read, always,
-  and spans it `libgdf.sync.<site>`. `count(event)` counts the path an
-  operator took (the group-by's `groupby.dense` / `groupby.sort`).
+  and spans it `libgdf.sync.<site>`. `count(event, n)` counts the path an
+  operator took (the group-by's `groupby.dense` / `groupby.sort`) and the
+  rows it took it with (`groupby.sort.rows`).
   `counters()` reads the counts.
 - The ABI's ranges (`range_push` / `range_pop`) are a
   `torch.profiler.record_function` each, and an NVTX range where CUDA is
@@ -83,11 +84,13 @@ def host_sync(site: str):
     return span("libgdf.sync." + site)
 
 
-def count(event: str) -> None:
-    """Count one `event`, a path an operator took (`groupby.dense`,
-    `groupby.sort`), under the lock of the host-sync counts."""
+def count(event: str, n: int = 1) -> None:
+    """Add `n` to the count of `event`: a path an operator took
+    (`groupby.dense`, `groupby.sort`, one each) or the rows it took them
+    with (`groupby.sort.rows`, the input's capacity), under the lock of
+    the host-sync counts."""
     with _sync_lock:
-        _events[event] += 1
+        _events[event] += n
 
 
 def counters() -> dict:

@@ -275,6 +275,12 @@ def _key_table(float_key=False, null_key=False):
                       device="cpu")
 
 
+PATH_SPANS = {"groupby.dense": ["libgdf.groupby.dense"],
+              "groupby.sort": ["libgdf.groupby.sort",
+                               "libgdf.groupby.sort.extract",
+                               "libgdf.groupby.sort.scan"]}
+
+
 @pytest.mark.parametrize("table,aggs,dropna,path,syncs", [
     (_key_table, [("v", "sum")], True, "groupby.dense", 1),
     (lambda: _key_table(null_key=True), [("v", "sum")], True,
@@ -297,9 +303,115 @@ def test_groupby_path_follows_the_input(table, aggs, dropna, path, syncs):
         out = ops.groupby(t, ["k"], aggs, dropna=dropna)
     got = tracing.counters()
     assert got[path] == 1 and got["host_sync"] == syncs
-    assert inside(events(prof), "libgdf.op.groupby", "libgdf.groupby.") == [
-        "libgdf." + path]
+    assert sorted(set(inside(events(prof), "libgdf.op.groupby",
+                             "libgdf.groupby."))) == PATH_SPANS[path]
     ref = ops.groupby(t, ["k"], [("v", "min")] + list(aggs), dropna=dropna)
     want, got_rows = to_numpy(ref), to_numpy(out)
     for name, values in got_rows[0].items():
         np.testing.assert_array_equal(values, want[0][name])
+
+
+# -- the sort path's phases ------------------------------------------------
+
+def _spans_of(prof, name: str) -> list:
+    return [e for e in events(prof) if e[0] == name]
+
+
+@pytest.mark.parametrize("aggs", [
+    [("v", "min")], [("v", "sum"), ("v", "max"), ("v", "count")],
+    [("v", "sum"), ("v", "count"), ("v", "avg"), ("v", "min")]],
+    ids=["min", "three_aggregates", "deferred_avg"])
+def test_sort_path_splits_into_scan_and_extract(aggs):
+    """After its sort, the sort path's work lies in one scan span (every
+    aggregate's segmented scans) between two extract spans (the
+    boundaries and key decode, then the compaction), all inside
+    `libgdf.groupby.sort` and none overlapping the sort."""
+    t = _key_table()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ops.groupby(t, ["k"], aggs)
+    evs = events(prof)
+    scan = _spans_of(prof, "libgdf.groupby.sort.scan")
+    extract = _spans_of(prof, "libgdf.groupby.sort.extract")
+    sort = _spans_of(prof, "libgdf.sort")
+    assert len(scan) == 1 and len(extract) == 2 and len(sort) == 1
+    first, second = sorted(extract, key=lambda e: e[1])
+    assert sort[0][2] <= first[1] and first[2] <= scan[0][1]
+    assert scan[0][2] <= second[1]
+    assert inside(evs, "libgdf.groupby.sort", "libgdf.groupby.sort.") == [
+        "libgdf.groupby.sort.extract", "libgdf.groupby.sort.extract",
+        "libgdf.groupby.sort.scan"]
+    assert inside(evs, "libgdf.groupby.sort.scan", "aten::")
+    assert inside(evs, "libgdf.groupby.sort.extract", "aten::")
+
+
+def test_dense_path_opens_no_sort_phase():
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ops.groupby(_key_table(), ["k"], [("v", "sum")])
+    names = {e[0] for e in events(prof)}
+    assert "libgdf.groupby.dense" in names
+    assert not {n for n in names if n.startswith("libgdf.groupby.sort")}
+
+
+def test_sort_rows_counts_each_sort_path_input_capacity():
+    """`groupby.sort.rows` adds the sort path's input capacity (dead rows
+    included: the host knows it without a read); the dense path adds
+    nothing."""
+    tracing.reset_counters()
+    ops.groupby(_key_table(), ["k"], [("v", "sum")])          # dense
+    assert "groupby.sort.rows" not in tracing.counters()
+    ops.groupby(_key_table(), ["k"], [("v", "min")])          # 6 rows
+    wide = from_numpy({"k": np.arange(40, dtype=np.int32) * 7,
+                       "v": np.ones(40)}, device="cpu").with_num_rows(
+        torch.tensor(25))
+    ops.groupby(wide, ["k"], [("v", "sum")])                  # 40 slots
+    got = tracing.counters()
+    assert got["groupby.sort.rows"] == 6 + 40
+    assert got["groupby.sort"] == 2 and got["groupby.dense"] == 1
+    tracing.reset_counters()
+    assert "groupby.sort.rows" not in tracing.counters()
+
+
+def _ev(cat, name, ts, dur, tid=1, **args):
+    return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+            "tid": tid, "pid": 1, "args": args}
+
+
+def _trace(program: bool):
+    """A 1000 us window with one kernel launched inside a scan span and
+    one inside an extract span (when `program`), 2 queries."""
+    from gdfbench.trace import Trace
+    evs = [
+        _ev("user_annotation", "gdfbench.window", 0, 1000),
+        _ev("user_annotation", "gdfbench.groupby", 100, 800),
+        _ev("cuda_runtime", "cudaLaunchKernel", 210, 5, correlation=1),
+        _ev("cuda_runtime", "cudaLaunchKernel", 610, 5, correlation=2),
+        _ev("kernel", "seg_scan_lookback", 300, 120, tid=7, correlation=1,
+            device=0, stream=7),
+        _ev("kernel", "compact_lookback", 650, 80, tid=7, correlation=2,
+            device=0, stream=7)]
+    if program:
+        evs += [_ev("cpu_op", "libgdf.op.groupby", 150, 700),
+                _ev("cpu_op", "libgdf.groupby.sort", 160, 680),
+                _ev("cpu_op", "libgdf.groupby.sort.scan", 200, 100),
+                _ev("cpu_op", "libgdf.groupby.sort.extract", 600, 100)]
+    return Trace({"traceEvents": evs})
+
+
+@pytest.mark.parametrize("metric,want", [("groupby_scan_device_ms", 0.06),
+                                         ("groupby_extract_device_ms", 0.04)])
+def test_sort_phase_readers(metric, want):
+    """Each reader gives the device ms a query launched inside its span,
+    and None without a trace, without device events, or on a program
+    without the span (an older commit)."""
+    from gdfbench import spec
+    from gdfbench.trace import Trace
+    read = spec.reader(metric).read
+
+    def ctx(trace):
+        return {"trace": trace, "queries": 2, "filter_bytes": 0,
+                "window_s": 1e-3, "exchange_s": None, "local_shards": 1}
+    assert read(ctx(_trace(True))) == pytest.approx(want)
+    assert read(ctx(_trace(False))) is None
+    assert read(ctx(None)) is None
+    assert read(ctx(Trace({"traceEvents": [
+        _ev("user_annotation", "gdfbench.window", 0, 1000)]}))) is None
