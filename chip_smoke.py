@@ -21,7 +21,10 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    float sum reads a denormal input as zero, folded into the kernel's
    load: H2's and H3's float32 and float64 sums equal their plain versions
    (flush, then scan) exactly on denormals and multiples of finfo.tiny at
-   the edge sizes. The
+   the edge sizes. H6's build and probe (`hash_build`, `hash_probe`) are
+   held to their plain versions and timed at the shapes of Q18's lineitem
+   join (60M int32 probe keys, 100 build keys: a table in shared memory)
+   and of Q3's (32M against 1.46M: a table in global memory). The
    look-backs of H1, H2 and H3 are checked for races: H2's 10M ones scan
    to exactly 1..n (int32 and int64, forward and reverse); H3's 10M ones
    with no flag sum to exactly 1..n and with a flag every 100,003 rows to
@@ -103,8 +106,8 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    one shard over the same rows), skew_max_over_mean, groups out, the slot
    capacities, the host time in the communicator's calls as a share of
    the variant, peak device memory, the launches, and the device's busy
-   share of the path from a torch.profiler trace; compact and seg_scan
-   must launch. Each variant,
+   share of the path from a torch.profiler trace; compact, seg_scan and
+   H6 must launch. Each variant,
    collected and sorted by key, is held to the single-table filter_table ->
    join -> groupby on the card; and the same distributed pipeline at 1M
    rows runs on the card and on 8 CPU shards, held shard by shard.
@@ -139,7 +142,8 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    single-table pipeline, and at W = 1, L = 8 shard by shard to the
    in-process P = 8 run (keys, per-shard counts exact, sums within the
    bound). It prints rows/s, each process's exchange share, peak device
-   memory and launches; compact, scan and seg_scan must launch in every
+   memory and launches; compact, seg_scan and H6 (hash_build, hash_probe:
+   the local joins) must launch in every
    process. A worker that fails or outlives 600 s fails the smoke, and
    the others are killed.
 8. Drives the probe path: the Hopper counterparts of the 14 Pallas cost
@@ -235,9 +239,17 @@ SOURCES = {
     "dense_groupby": ("libgdf_tpu_torch/csrc/dense_groupby.cu",
                       "none: the group-by that libgdf_tpu/ops/groupby.py "
                       "sorts for, over a small integer key domain"),
+    "hash_build": ("libgdf_tpu_torch/csrc/hash_join.cu",
+                   "none: the table of H6, the inner join on one key that "
+                   "libgdf_tpu/ops/join.py sorts for, of a unique build side"),
+    "hash_probe": ("libgdf_tpu_torch/csrc/hash_join.cu",
+                   "none: the probe of H6 (as hash_build)"),
 }
-# the kernels the main path must launch (its group-by takes the sort path)
-MAIN_KERNELS = ("compact", "scan", "seg_scan", "expand_fill")
+# the kernels the main path must launch (its group-by takes the sort path;
+# its join on a unique build side the hash path, the one on repeated keys
+# the sort path's general path)
+MAIN_KERNELS = ("compact", "scan", "seg_scan", "expand_fill", "hash_build",
+                "hash_probe")
 REL = {torch.float32: 2e-4, torch.float64: 1e-12}
 # the edges of H2's and H3's 32 KB tiles (8192 4-byte or 4096 8-byte
 # elements), H1's 4096-row tiles and H4's 4096-slot runs, and many tiles
@@ -265,7 +277,7 @@ N_DIST, N_DIST_CPU, DIST_P, DIST_KEYS = 10_000_000, 1_000_000, 8, 100_000
 DIST_AGGS = [("v", "sum", "s"), ("v", "count", "c")]
 DIST_BATCHES = 2
 DIST_REPEATS = 20          # runs of the plain variant in the race check
-DIST_KERNELS = ("compact", "seg_scan")
+DIST_KERNELS = ("compact", "seg_scan", "hash_build", "hash_probe")
 # __global__ functions of libgdf_tpu_torch/csrc/*.cu, by wrapper
 # (H2 and H3 are instances of one template)
 KERNEL_NAMES = {"compact": ("compact_lookback",),
@@ -274,6 +286,8 @@ KERNEL_NAMES = {"compact": ("compact_lookback",),
                 "expand_fill": ("expand_fill_runs",),
                 "domain_probe": ("domain_probe",),
                 "dense_groupby": ("dense_groupby",),
+                "hash_build": ("hash_build",),
+                "hash_probe": ("hash_probe",),
                 "tile_sort": ("tile_sort_cluster",),
                 "lane_gather": ("lane_gather_rows",),
                 "sublane_gather": ("sublane_gather_persistent",),
@@ -963,6 +977,79 @@ def phase_dense(rng, dev):
     return stats
 
 
+# -- H6 hash_build / hash_probe -----------------------------------------------
+
+# (probe rows, build rows, key domain) of the joins H6 runs in the cells:
+# Q18's lineitem join (60M line items against ~100 orders; a 2048-slot table
+# in shared memory) and Q3's (~32M line items against ~1.46M orders; 4M
+# slots in global memory, L2-resident), int32 keys
+HASH_SHAPES = {"q18": (60_000_000, 100, 15_000_000),
+               "q3": (32_000_000, 1_460_000, 60_000_000)}
+
+
+def hash_keys(rng, dev, probe_n, build_n, domain):
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    build = torch.randperm(domain, generator=g, device=dev)[:build_n]
+    probe = torch.randint(0, domain, (probe_n,), generator=g, device=dev)
+    return build.to(torch.int32), probe.to(torch.int32)
+
+
+def same_hash(bk, pk, what):
+    """H6 against its plain version: count and duplicate flag exact, the
+    pairs by probe row exact. Returns the match count."""
+    p, b, res = kernels.hash_probe(kernels.hash_build(bk), pk)
+    pw, bw, rw = kernels.hash_probe_plain(kernels.hash_build_plain(bk), pk)
+    count, dup = res.tolist()
+    if [count, dup] != rw.tolist() or dup:
+        fail(f"{what}: count, dup {count, dup} vs {rw.tolist()}")
+    order = torch.argsort(p[:count])
+    exact(p[:count][order].cpu(), pw[:count].cpu(), f"{what} probe rows")
+    exact(b[:count][order].cpu(), bw[:count].cpu(), f"{what} build rows")
+    return count
+
+
+def phase_hash(rng, dev):
+    """H6's build and probe at Q18's and Q3's shapes, held to their plain
+    versions, then timed. The build's bound: the build keys read and the
+    table written; the probe's: the probe keys read, the table read once
+    and the pairs written. Returns the stats of both (Q18's shape, Q3's
+    under `at_q3`)."""
+    stats = {"hash_build": {}, "hash_probe": {}}
+    for shape, (probe_n, build_n, domain) in HASH_SHAPES.items():
+        bk, pk = hash_keys(rng, dev, probe_n, build_n, domain)
+        count = same_hash(bk, pk, f"hash join at {shape}'s shape")
+        table = kernels.hash_build(bk)
+        table_bytes = table.data.numel()
+        where = "shared memory" if table.staged else "global memory"
+        desc = (f"{probe_n} int32 probe keys, {build_n} build keys, "
+                f"{table.slots} slots in {where}, {count} matches")
+        for name, run, plain, moved in (
+                ("hash_build", lambda: kernels.hash_build(bk),
+                 lambda: kernels.hash_build_plain(bk),
+                 build_n * 4 + table_bytes),
+                ("hash_probe", lambda: kernels.hash_probe(table, pk),
+                 lambda: kernels.hash_probe_plain(
+                     kernels.hash_build_plain(bk), pk),
+                 probe_n * 4 + table_bytes + count * 8)):
+            dev_ms, acts = one_launch_ms(run, name)
+            print(f"{name} at {shape}'s shape: device activities per call "
+                  f"{acts}", flush=True)
+            st = dict(max_abs_err=0.0, ms=cuda_ms(run), profiler_ms=dev_ms,
+                      host_ms=host_ms(run), plain_ms=cuda_ms(plain),
+                      library_ms=None, bound_ms=bound_ms(moved),
+                      bound_by="bytes", shape=desc)
+            if shape == "q18":
+                stats[name].update(st)
+            else:
+                stats[name]["at_q3"] = st
+                print(f"kernel {name} at q3's shape: ms={st['ms']:.4f} "
+                      f"profiler_ms={st['profiler_ms']} host_ms="
+                      f"{st['host_ms']:.4f} plain_ms={st['plain_ms']:.4f} "
+                      f"bound_ms={st['bound_ms']:.4f} ({desc})", flush=True)
+        del bk, pk, table
+    return stats
+
+
 # -- the dense path -----------------------------------------------------------
 
 def make_q1_data(seed=0):
@@ -1640,7 +1727,9 @@ def run_across_cards(ddata, ref, absref):
 
 # -- the distributed path across processes ----------------------------------
 
-PROC_KERNELS = ("compact", "scan", "seg_scan")
+# the local joins take the hash path (each shard's build keys are unique),
+# so no scan of a join's sort path
+PROC_KERNELS = ("compact", "seg_scan", "hash_build", "hash_probe")
 PROC_TIMEOUT = 600          # seconds a worker may take
 VARIANTS = ("plain", "salted", "broadcast")
 
@@ -2870,7 +2959,8 @@ def main(argv=None):
                          (("scan",), phase_scan),
                          (("seg_scan",), phase_seg_scan),
                          (("expand_fill",), phase_expand),
-                         (("domain_probe", "dense_groupby"), phase_dense)):
+                         (("domain_probe", "dense_groupby"), phase_dense),
+                         (("hash_build", "hash_probe"), phase_hash)):
         t0 = time.perf_counter()
         got = phase(rng, dev)
         stats.update(got if len(names) > 1 else {names[0]: got})

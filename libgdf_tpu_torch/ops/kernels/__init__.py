@@ -13,17 +13,23 @@ several threads launch at once.
   H4 expand_fill  expand.py   <- pallas/expand.py
   H5 dense_groupby dense.py   <- none: a group-by over a small integer key
                                  domain without a sort (with domain_probe)
+  H6 hash_build,  hash.py     <- none: an inner join on one key of a unique
+     hash_probe                  build side through a hash table, without a
+                                 sort
 """
 from ._lib import COUNT_LOCK, build, count_launch, reset_counts
 from .compact import compact, compact_plain
 from .dense import (dense_groupby, dense_groupby_plain, domain_probe,
                     domain_probe_plain)
 from .expand import SENTINEL, expand_fill, expand_fill_plain
+from .hash import (HashTable, SortedTable, hash_build, hash_build_plain,
+                   hash_probe, hash_probe_plain)
 from .scan import scan, scan_plain, seg_scan, seg_scan_plain
 
 WRAPPERS = {"compact": compact, "scan": scan, "seg_scan": seg_scan,
             "expand_fill": expand_fill, "domain_probe": domain_probe,
-            "dense_groupby": dense_groupby}
+            "dense_groupby": dense_groupby, "hash_build": hash_build,
+            "hash_probe": hash_probe}
 
 
 def launch_counts() -> dict:
@@ -46,6 +52,7 @@ __all__ = [
     "build", "count_launch", "compact", "compact_plain", "scan",
     "scan_plain", "seg_scan", "seg_scan_plain", "expand_fill",
     "expand_fill_plain", "SENTINEL", "dense_groupby", "dense_groupby_plain",
-    "domain_probe", "domain_probe_plain", "WRAPPERS", "launch_counts",
-    "reset_launch_counts",
+    "domain_probe", "domain_probe_plain", "HashTable", "SortedTable",
+    "hash_build", "hash_build_plain", "hash_probe", "hash_probe_plain",
+    "WRAPPERS", "launch_counts", "reset_launch_counts",
 ]

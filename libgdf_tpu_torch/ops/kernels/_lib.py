@@ -52,6 +52,12 @@ _SIGNATURES = {
     "gdf_domain_probe": (_I, [_P, _P, _P, _I64, _P]),
     "gdf_dense_groupby_scratch_bytes": (_I64, [_I, _I, _I64, _PI]),
     "gdf_dense_groupby": (_I, [_I, _P, _P, _I64, _P]),
+    "gdf_hash_slots": (_I64, [_I64]),
+    "gdf_hash_staged": (_I, [_I64]),
+    "gdf_hash_table_bytes": (_I64, [_I, _I64]),
+    "gdf_hash_build": (_I, [_I, _P, _P, _P, _I64, _P, _I64, _P, _P]),
+    "gdf_hash_probe": (_I, [_I, _P, _P, _P, _I64, _P, _I64, _P, _P, _I64,
+                            _P, _P]),
     # the cost probes (libgdf_tpu_torch/probes/)
     "gdf_probe_tile_sort_clusters": (_I, [_PI]),
     "gdf_probe_tile_sort": (_I, [_P, _P, _P, _P, _I64, _P]),

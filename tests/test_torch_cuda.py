@@ -1811,3 +1811,209 @@ def test_dense_groupby_host_waits_are_its_counted_read(dev):
         c = tracing.counters()
         assert len(syncs) == c["host_sync"] == waits, (path, syncs, c)
         assert c[path] == 1
+
+
+# ---------------------------------------------------------------------------
+# H6 hash_build / hash_probe
+# ---------------------------------------------------------------------------
+
+def _join_module():
+    import importlib
+    return importlib.import_module("libgdf_tpu_torch.ops.join")
+
+
+def _same_h6(bkeys, pkeys, bvalid=None, pvalid=None, brows=None, prows=None):
+    """H6 against its plain version on the card: the count and duplicate
+    flag exact; without a duplicate, the pairs by probe row, and after the
+    operator's order sort, exact. Returns (count, dup)."""
+    table = kernels.hash_build(bkeys, bvalid, brows)
+    p, b, res = kernels.hash_probe(table, pkeys, pvalid, prows)
+    torch.cuda.synchronize()
+    plain = kernels.hash_build_plain(bkeys, bvalid, brows)
+    pw, bw, rw = kernels.hash_probe_plain(plain, pkeys, pvalid, prows)
+    count, dup = res.tolist()
+    assert [count, dup] == rw.tolist()
+    if dup:
+        return count, dup
+    p, b, pw, bw = p[:count], b[:count], pw[:count], bw[:count]
+    order = torch.argsort(p)
+    assert torch.equal(p[order], pw) and torch.equal(b[order], bw)
+    J = _join_module()
+    for got, want in zip(J._match_order(pkeys, p, b),
+                         J._match_order(pkeys, pw, bw)):
+        assert torch.equal(got, want)
+    return count, dup
+
+
+def _h6_keys(dev, probe_n, build_n, domain, seed, dtype=torch.int32):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    build = torch.randperm(domain, generator=g, device=dev)[:build_n]
+    probe = torch.randint(0, domain, (probe_n,), generator=g, device=dev)
+    return build.to(dtype), probe.to(dtype)
+
+
+# (probe rows, build rows, key domain): Q18's lineitem join (a 2048-slot
+# table in shared memory), Q3's (4M slots in global memory), one build row,
+# the largest staged table (2048 rows, 4096 slots) and the smallest that is
+# not (2049 rows, 8192 slots)
+H6_SHAPES = {"q18": (60_000_000, 100, 15_000_000),
+             "q3": (32_000_000, 1_460_000, 60_000_000),
+             "one_row": (1_000_003, 1, 3),
+             "smem_limit": (4_000_037, 2048, 40_000),
+             "past_smem_limit": (4_000_037, 2049, 40_000)}
+
+
+@pytest.mark.parametrize("shape", list(H6_SHAPES))
+def test_hash_join_matches_plain(dev, shape):
+    probe_n, build_n, domain = H6_SHAPES[shape]
+    bk, pk = _h6_keys(dev, probe_n, build_n, domain, 11)
+    count, dup = _same_h6(bk, pk)
+    assert not dup and count > 0
+    staged = kernels.hash_build(bk).staged
+    assert staged == (shape in ("q18", "one_row", "smem_limit"))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32,
+                                   torch.int64, torch.uint8, torch.float32,
+                                   torch.float64])
+@pytest.mark.parametrize("build_n", [100, 50_000])
+def test_hash_join_dtypes_nulls_and_dead_rows(dev, dtype, build_n):
+    """Every key dtype, null keys and dead rows on both sides (the dead
+    and null build rows repeat live keys), unaligned probe keys."""
+    rng = np.random.default_rng(build_n + 7)
+    domain, low = {torch.int8: (200, -100), torch.uint8: (200, 0),
+                   torch.int16: (60_000, -30_000)}.get(dtype,
+                                                       (10 * build_n, 0))
+    n_b = min(build_n, domain // 2)
+    bk, pk = _h6_keys(dev, 1_000_001, n_b, domain, 3, torch.int64)
+    bk, pk = (bk + low).to(dtype), (pk + low).to(dtype)
+    live_b = n_b - n_b // 5
+    bk[live_b:] = bk[:n_b - live_b]
+    bvalid = torch.as_tensor(rng.random(n_b) < 0.9, device=dev)
+    bk[~bvalid] = bk[0].item()
+    pvalid = torch.as_tensor(rng.random(pk.shape[0]) < 0.9, device=dev)
+    pk = torch.cat([pk[:1], pk])[1:]            # a view off 16 bytes
+    brows = torch.tensor(live_b, dtype=torch.int32, device=dev)
+    prows = torch.tensor(900_001, dtype=torch.int32, device=dev)
+    count, dup = _same_h6(bk, pk.clone(), bvalid, pvalid, brows, prows)
+    assert not dup and count > 0
+    count_u, _ = _same_h6(bk, pk, bvalid, pvalid, brows, prows)
+    assert count_u == count
+
+
+def test_hash_join_special_keys(dev):
+    """The keys the tables treat apart: an int64 -1 (all ones, a wide
+    table's empty slot), 0 (a narrow slot's empty word holds key 0 with no
+    row), INT32/INT64 extremes, floats' -0.0, denormals and NaN."""
+    i64 = torch.iinfo(torch.int64)
+    i32 = torch.iinfo(torch.int32)
+    cases = [
+        (torch.tensor([-1, 0, i64.min, i64.max, 1 << 32, 5]),
+         torch.tensor([-1, 0, i64.min, i64.max, 1 << 32, 7, -1, 2])),
+        (torch.tensor([0, i32.min, i32.max, -1], dtype=torch.int32),
+         torch.tensor([i32.max, 0, 0, i32.min, 3, -1], dtype=torch.int32)),
+        (torch.tensor([-0.0, 1.5, float("nan"), 2.0]),
+         torch.tensor([0.0, 5e-324, -2e-320, float("nan"), 1.5, -0.0])),
+        (torch.tensor([0.0, 1.5, float("nan")], dtype=torch.float32),
+         torch.tensor([-0.0, 1e-40, float("nan"), 1.5, 2.0],
+                      dtype=torch.float32)),
+    ]
+    for bk, pk in cases:
+        bk, pk = bk.to(dev), pk.to(dev).repeat(1000)
+        count, dup = _same_h6(bk, pk)
+        assert not dup and count > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
+def test_hash_build_flags_a_duplicate(dev, dtype):
+    bk = torch.arange(5000, device=dev).to(dtype)
+    bk[4321] = bk[17]
+    pk = torch.arange(10_000, device=dev).to(dtype)
+    _, dup = _same_h6(bk, pk)
+    assert dup == 1
+
+
+@pytest.mark.parametrize("empty", ["build", "probe", "both"])
+def test_hash_join_empty_side_launches_nothing(dev, empty):
+    """An empty side launches nothing: an empty build side's table matches
+    nothing and launches neither kernel; an empty probe side of a table
+    that counted matches before launches no probe and counts 0. Each gives
+    the plain version's result."""
+    bk, pk = _h6_keys(dev, 10_000, 100, 400, 7)
+    table = kernels.hash_build(bk)
+    _, _, res = kernels.hash_probe(table, pk)
+    assert int(res[0]) > 0
+    if empty in ("build", "both"):
+        bk = bk[:0]
+    if empty in ("probe", "both"):
+        pk = pk[:0]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    if empty != "probe":
+        table = kernels.hash_build(bk)
+    _, _, res = kernels.hash_probe(table, pk)
+    counts = kernels.launch_counts()
+    assert counts["hash_build"] == counts["hash_probe"] == 0
+    assert res.tolist() == [0, 0]
+    _, _, rw = kernels.hash_probe_plain(kernels.hash_build_plain(bk), pk)
+    assert rw.tolist() == [0, 0]
+
+
+def test_hash_probe_counts_past_its_capacity(dev):
+    bk, pk = _h6_keys(dev, 1_000_000, 1000, 4000, 5)
+    table = kernels.hash_build(bk)
+    _, _, full = kernels.hash_probe(table, pk)
+    count = int(full[0])
+    p, b, res = kernels.hash_probe(table, pk, capacity=count // 2)
+    assert int(res[0]) == count and p.shape[0] == count // 2
+    pw, bw, _ = kernels.hash_probe_plain(kernels.hash_build_plain(bk), pk)
+    got = set(zip(p.tolist(), b.tolist()))
+    assert got <= set(zip(pw[:count].tolist(), bw[:count].tolist()))
+    assert len(got) == count // 2
+
+
+def test_hash_join_operator_on_the_card(dev):
+    """The inner join through the operator on the card against its CPU
+    run: identical indices and count; one build and one probe launch and
+    none of the sort path's kernels; one host wait (sync debug mode)."""
+    import warnings
+    from libgdf_tpu_torch import Table, ops
+    from libgdf_tpu_torch.utils import tracing
+    rng = np.random.default_rng(9)
+    n, nb = 2_000_003, 30_000
+    left = {"k": rng.integers(0, 120_000, n).astype(np.int32),
+            "v": rng.standard_normal(n)}
+    right = {"k": rng.permutation(120_000)[:nb].astype(np.int32),
+             "w": rng.standard_normal(nb)}
+    nulls = {"k": rng.random(n) < 0.05}
+    outs = {}
+    for d in ("cpu", "cuda"):
+        lt = Table.from_dict(left, nulls, device=d).with_num_rows(
+            torch.tensor(n - 1000, device=d))
+        rt = Table.from_dict(right, device=d)
+        if d == "cuda":
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            tracing.reset_counters()
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    li, ri, c = ops.inner_join(lt, rt, ["k"], ["k"])
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs = [w for w in seen
+                     if "called a synchronizing" in str(w.message)]
+            counts = kernels.launch_counts()
+            assert counts["hash_build"] == counts["hash_probe"] == 1
+            assert counts["compact"] == counts["seg_scan"] == 0
+            assert counts["expand_fill"] == 0
+            got = tracing.counters()
+            assert len(syncs) == got["host_sync"] == 1, (syncs, got)
+            assert got["join.hash"] == 1
+        else:
+            li, ri, c = ops.inner_join(lt, rt, ["k"], ["k"])
+        outs[d] = (li.cpu(), ri.cpu(), int(c))
+    assert outs["cpu"][2] == outs["cuda"][2] > 0
+    assert torch.equal(outs["cpu"][0], outs["cuda"][0])
+    assert torch.equal(outs["cpu"][1], outs["cuda"][1])

@@ -153,6 +153,161 @@ def test_join_assume_unique_build_poisons_count(rng):
     assert int(tc) == int(jc) == -1
 
 
+I32 = np.iinfo(np.int32)
+I64 = np.iinfo(np.int64)
+F32_TINY = np.finfo(np.float32).tiny
+F64_TINY = np.finfo(np.float64).tiny
+
+
+def _unique(rng, values, m):
+    return rng.permutation(np.asarray(values))[:m]
+
+
+def _hash_case(rng, case):
+    """((left columns, nulls, num_rows), (right ...)) of a case of the hash
+    path: an inner join on one key, the right side the build side."""
+    n, m = 400, 120
+    lnull = rnull = None
+    lrows = rrows = None
+    if case == "duplicate_build":
+        rk = _unique(rng, np.arange(300), m).astype(np.int32)
+        rk[7] = rk[60]
+        lk = rng.integers(0, 300, n).astype(np.int32)
+    elif case == "nulls_nan_dead":
+        rk = _unique(rng, np.arange(240) / 4, m)
+        rk[::9] = np.nan                   # NaN repeats: never inserted
+        rrows = 100
+        rk[rrows:] = rk[1:m - rrows + 1]   # dead rows repeat live keys
+        rnull = rng.random(m) < 0.1
+        rk[rnull] = rk[1]                  # and so do nulls
+        lk = rng.integers(0, 240, n) / 4
+        lk[::13] = np.nan
+        lnull = rng.random(n) < 0.1
+        lrows = 380
+    elif case in ("signed_zero_denormal_f32", "signed_zero_denormal_f64"):
+        dt = np.float32 if case.endswith("f32") else np.float64
+        tiny = F32_TINY if dt == np.float32 else F64_TINY
+        rk = np.concatenate([[-0.0, 1.5, 2.5, -tiny], np.arange(4, m)])
+        rk = rng.permutation(rk).astype(dt)
+        lk = rng.choice([0.0, -0.0, tiny / 2, -tiny / 4, tiny, -tiny, 1.5,
+                         2.5, np.nan, 9.0], n).astype(dt)
+    elif case == "int64_wide":
+        wide = np.array([I64.min, I64.max, -1, 0, 1 << 32, (1 << 32) + 1,
+                         -(1 << 32), (1 << 40) + 7], np.int64)
+        rk = np.concatenate([wide, (np.arange(m - len(wide)) << 33) + 5])
+        rk = rng.permutation(rk)
+        lk = rng.choice(np.concatenate([rk, rk + 1]), n)
+    elif case == "int32_extremes":
+        rk = np.concatenate([[I32.min, I32.max, -1, 0],
+                             np.arange(10, 10 + m - 4)]).astype(np.int32)
+        rk = rng.permutation(rk)
+        lk = rng.choice(np.concatenate([rk, [I32.min + 1, I32.max - 1]]),
+                        n).astype(np.int32)
+    elif case == "int16":
+        rk = _unique(rng, np.arange(-200, 200), m).astype(np.int16)
+        lk = rng.integers(-300, 300, n).astype(np.int16)
+    elif case == "empty_build":
+        rk = np.zeros(0, np.int32)
+        lk = rng.integers(0, 50, n).astype(np.int32)
+    elif case == "empty_probe":
+        rk = _unique(rng, np.arange(300), m).astype(np.int32)
+        lk = np.zeros(0, np.int32)
+    elif case == "no_match":
+        rk = _unique(rng, np.arange(300), m).astype(np.int32)
+        lk = rng.integers(1000, 2000, n).astype(np.int32)
+    elif case == "every_row_matches":
+        rk = _unique(rng, np.arange(300), m).astype(np.int32)
+        lk = rng.choice(rk, n).astype(np.int32)
+    else:
+        raise ValueError(case)
+    left = ({"k": lk, "a": np.arange(len(lk), dtype=np.int32)},
+            None if lnull is None else {"k": lnull}, lrows)
+    right = ({"k": rk, "b": np.arange(len(rk), dtype=np.float32)},
+             None if rnull is None else {"k": rnull}, rrows)
+    return left, right
+
+
+HASH_CASES = ["duplicate_build", "nulls_nan_dead", "signed_zero_denormal_f32",
+              "signed_zero_denormal_f64", "int64_wide", "int32_extremes",
+              "int16", "empty_build", "empty_probe", "no_match",
+              "every_row_matches"]
+
+
+@pytest.mark.parametrize("case", HASH_CASES)
+def test_join_hash_path_cases(rng, case):
+    """The inner join on one key through the hash path (the sort path where
+    the build side repeats a live key) gives the JAX package's indices, in
+    its order, and count."""
+    from libgdf_tpu_torch.utils import tracing
+    (lc, ln, lrows), (rc, rn, rrows) = _hash_case(rng, case)
+    jl, tl = make_tables(lc, ln, num_rows=lrows)
+    jr, tr = make_tables(rc, rn, num_rows=rrows)
+    ji, jj, jc = jops.join_indices(jl, jr, ["k"], ["k"], how="inner")
+    tracing.reset_counters()
+    ti, tj, tc = tops.join_indices(tl, tr, ["k"], ["k"], how="inner")
+    got = tracing.counters()
+    want = ({"join.hash_fallback": 1, "join.sort": 1}
+            if case == "duplicate_build" else {"join.hash": 1})
+    assert {k: v for k, v in got.items() if k.startswith("join.")} == want
+    assert int(tc) == int(jc)
+    np.testing.assert_array_equal(np_of(ti), np_of(ji))
+    np.testing.assert_array_equal(np_of(tj), np_of(jj))
+
+
+@pytest.mark.parametrize("case", ["every_row_matches", "int64_wide"])
+def test_join_hash_path_out_capacity(rng, case):
+    """An out_capacity at the count pads with nothing, one above it with
+    -1; one below it raises, as on the sort path."""
+    from libgdf_tpu_torch import GDFError
+    (lc, ln, _), (rc, rn, _) = _hash_case(rng, case)
+    jl, tl = make_tables(lc, ln)
+    jr, tr = make_tables(rc, rn)
+    ti, tj, tc = tops.join_indices(tl, tr, ["k"], ["k"])
+    count = int(tc)
+    assert count > 0
+    for cap in (count, count + 3):
+        ji, jj, jc = jax_op("join_indices", jl, jr, left_on=("k",),
+                            right_on=("k",), how="inner", out_capacity=cap)
+        ci, cj, cc = tops.join_indices(tl, tr, ["k"], ["k"],
+                                       out_capacity=cap)
+        assert int(cc) == int(jc) == count
+        np.testing.assert_array_equal(np_of(ci), np_of(ji))
+        np.testing.assert_array_equal(np_of(cj), np_of(jj))
+    with pytest.raises(GDFError):
+        tops.join_indices(tl, tr, ["k"], ["k"], out_capacity=count - 1)
+
+
+@pytest.mark.parametrize("how,keys,dup,want", [
+    ("inner", ["k"], False, {"join.hash": 1}),
+    ("inner", ["k"], True, {"join.hash_fallback": 1, "join.sort": 1}),
+    ("left", ["k"], False, {"join.sort": 1}),
+    ("full", ["k"], False, {"join.sort": 1}),
+    ("inner", ["k", "a"], False, {"join.sort": 1}),
+], ids=["inner_unique", "inner_duplicate", "left", "full", "multi_key"])
+def test_join_path_follows_the_input(rng, how, keys, dup, want):
+    """Which path a join takes, by the counters: the hash path for an inner
+    join on one key of a unique build side (one host read), the sort path
+    (three) after a duplicate and for every other join."""
+    from libgdf_tpu_torch.utils import tracing
+    (lc, ln), (rc, rn) = _join_inputs(rng, np.int32, dup, False)
+    lc, rc = dict(lc), dict(rc)
+    rc["a"] = rng.integers(0, 3, len(rc["k"])).astype(np.int32)
+    lc["a"] = rng.integers(0, 3, len(lc["k"])).astype(np.int32)
+    _, tl = make_tables(lc, ln)
+    _, tr = make_tables(rc, rn)
+    tracing.reset_counters()
+    tops.join_indices(tl, tr, keys, keys, how=how)
+    got = tracing.counters()
+    assert {k: v for k, v in got.items() if k.startswith("join.")} == want
+    sort_reads = {"host_sync.join.key_change", "host_sync.join.total",
+                  "host_sync.join.unique_build"}
+    reads = {k for k in got if k.startswith("host_sync.")}
+    hash_read = {"host_sync.join.hash.count"}
+    assert reads == (hash_read if "join.hash" in want else
+                     sort_reads | (hash_read if dup and how == "inner"
+                                   else set()))
+
+
 @pytest.mark.parametrize("how", ["inner", "left", "full"])
 def test_join_materialized(rng, how):
     (lc, ln), (rc, rn) = _join_inputs(rng, np.int64, True, False)

@@ -76,19 +76,38 @@ def test_no_record_function_without_a_profiler(monkeypatch):
 
 
 def test_join_spans_nest_under_a_profiler():
+    """A unique build side takes the hash path: its one read and the sort
+    of the matched pairs lie inside `libgdf.join.hash`."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         run_join()
     evs = events(prof)
     assert inside(evs, "libgdf.op.join", "libgdf.") == [
-        "libgdf.op.join_indices", "libgdf.sort",
-        "libgdf.sync.join.key_change", "libgdf.sync.join.total",
-        "libgdf.sync.join.unique_build"]
-    assert inside(evs, "libgdf.op.join_indices", "libgdf.sync.") == [
-        "libgdf.sync.join.key_change", "libgdf.sync.join.total",
-        "libgdf.sync.join.unique_build"]
+        "libgdf.join.hash", "libgdf.op.join_indices", "libgdf.sort",
+        "libgdf.sync.join.hash.count"]
+    assert inside(evs, "libgdf.op.join_indices", "libgdf.") == [
+        "libgdf.join.hash", "libgdf.sort", "libgdf.sync.join.hash.count"]
+    assert inside(evs, "libgdf.join.hash", "libgdf.") == [
+        "libgdf.sort", "libgdf.sync.join.hash.count"]
     # the sorts hold torch.sort passes and the operand gathers
     assert inside(evs, "libgdf.sort", "aten::sort")
     assert inside(evs, "libgdf.sort", "aten::index")
+
+
+def test_join_fallback_spans_nest_under_a_profiler():
+    """A duplicate build key: the hash path's read inside
+    `libgdf.join.hash`, then the sort path's three inside
+    `libgdf.join.sort`, both inside `libgdf.op.join_indices`."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run_join(dup_build=True)
+    evs = events(prof)
+    assert inside(evs, "libgdf.op.join_indices", "libgdf.join.") == [
+        "libgdf.join.hash", "libgdf.join.sort"]
+    assert inside(evs, "libgdf.join.hash", "libgdf.sync.") == [
+        "libgdf.sync.join.hash.count"]
+    # the general path sorts both sides, then the build side alone
+    assert inside(evs, "libgdf.join.sort", "libgdf.") == [
+        "libgdf.sort", "libgdf.sort", "libgdf.sync.join.key_change",
+        "libgdf.sync.join.total", "libgdf.sync.join.unique_build"]
 
 
 @pytest.mark.parametrize("outer,inner", [
@@ -98,6 +117,8 @@ def test_join_spans_nest_under_a_profiler():
     ("libgdf.op.add", "aten::add"),
     ("libgdf.op.mul", "aten::mul"),
     ("libgdf.op.groupby", "libgdf.sort"),
+    ("libgdf.op.join_indices", "libgdf.join.hash"),
+    ("libgdf.join.hash", "libgdf.sort"),
     ("libgdf.op.groupby", "libgdf.groupby.dense"),
     ("libgdf.op.groupby", "libgdf.groupby.sort"),
     ("libgdf.groupby.sort", "libgdf.sort"),
@@ -151,13 +172,17 @@ def _stencil():
     return gdf.gpu_apply_stencil(col, st)
 
 
-JOIN = {"join.key_change": 1, "join.total": 1, "join.unique_build": 1}
-PATHS = ("groupby.dense", "groupby.sort")     # counted events, not syncs
+JOIN = {"join.hash.count": 1, "join.hash": 1}
+JOIN_FALLBACK = {"join.hash.count": 1, "join.key_change": 1, "join.total": 1,
+                 "join.unique_build": 1, "join.hash_fallback": 1,
+                 "join.sort": 1}
+PATHS = ("groupby.dense", "groupby.sort", "join.hash", "join.sort",
+         "join.hash_fallback")               # counted events, not syncs
 
 
 @pytest.mark.parametrize("fn,want", [
     (run_join, JOIN),
-    (lambda: run_join(dup_build=True), JOIN),
+    (lambda: run_join(dup_build=True), JOIN_FALLBACK),
     (lambda: run_join().compact(), {**JOIN, "table.compact": 1}),
     (lambda: ops.groupby(tables()[0], ["k"], [("v", "sum")]),
      {"groupby.domain": 1, "groupby.dense": 1}),
@@ -230,8 +255,7 @@ def test_counter_is_exact_across_threads():
     assert not errors, errors
     n = threads_n * joins
     assert tracing.counters() == {
-        "host_sync": len(JOIN) * n,
-        **{f"host_sync.{site}": n for site in JOIN}}
+        "host_sync": n, "host_sync.join.hash.count": n, "join.hash": n}
 
 
 # -- the group-by's two paths ---------------------------------------------------
@@ -255,16 +279,30 @@ def run_query(name: str) -> dict:
 
 @pytest.mark.parametrize("name,path,syncs", [
     ("tpch_sf10.q1", "groupby.dense", 2),
-    ("tpch_sf10.q3", "groupby.sort", 13)])
+    ("tpch_sf10.q3", "groupby.sort", 9)])
 def test_benchmark_plans_take_their_groupby_path(name, path, syncs):
     """Q1's keys (two int8 codes, 6 slots) take the dense path, Q3's
     (order keys, dates) the sort path; either group-by waits once, on the
-    probe's read, and the plans keep their host waits (2 and 13)."""
+    probe's read, and the plans keep their host waits (2, and 9 since
+    Q3's joins take the hash path)."""
     got = run_query(name)
     other = "groupby.sort" if path == "groupby.dense" else "groupby.dense"
     assert got[path] == 1 and other not in got
     assert got["host_sync.groupby.domain"] == 1
     assert "host_sync.groupby.new_group" not in got
+    assert got["host_sync"] == syncs
+
+
+@pytest.mark.parametrize("name,joins,syncs", [
+    ("tpch_sf10.q3", 2, 9), ("tpch_sf10_q18.q18", 3, 10)])
+def test_benchmark_joins_take_the_hash_path(name, joins, syncs):
+    """Every join of Q3 and Q18 has a unique build side (primary keys, a
+    group-by's keys) and takes the hash path, one read each; none sorts."""
+    got = run_query(name)
+    assert got["join.hash"] == got["host_sync.join.hash.count"] == joins
+    assert not {k for k in got if k.startswith(("join.sort",
+                                                "join.hash_fallback",
+                                                "host_sync.join.total"))}
     assert got["host_sync"] == syncs
 
 
