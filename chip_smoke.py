@@ -220,7 +220,7 @@ from libgdf_tpu_torch.ops.kernels import _lib, dense
 from libgdf_tpu_torch.ops.sort import radix_encode
 from libgdf_tpu_torch.parallel import procs as procs_mod
 from libgdf_tpu_torch.parallel.mesh import Mesh
-from libgdf_tpu_torch.probes import caps, gather, roll, tilesort
+from libgdf_tpu_torch.probes import _common, caps, gather, roll, tilesort
 from libgdf_tpu_torch.utils import tracing
 
 SOURCES = {
@@ -2826,11 +2826,11 @@ def roll_floors(dev, card):
 
 def roll_loop_shuffles():
     """{roll kernel: SHFL instructions in its loop}, from cuobjdump -sass of
-    the built library: the instructions from the target of the kernel's
+    the probes' library: the instructions from the target of the kernel's
     backward branch to the branch. Fails unless each loop pass shuffles 4
     registers a rotation (one rotation a repetition, nothing folded)."""
     cuobjdump = os.path.join(os.path.dirname(_lib._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(_lib.library_path())],
+    sass = subprocess.run([cuobjdump, "-sass", str(_common.LIBRARY.build())],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
     instr = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"

@@ -1,6 +1,7 @@
 // Shared pieces of the Hopper kernels: block geometry, a block-wide
-// exclusive sum of one int per thread, and the launch check that turns a
-// refused launch into the cudaError_t the C entry points return.
+// exclusive sum of one int per thread, the dtype codes of H5 and H6, the
+// launch check that turns a refused launch into the cudaError_t the C
+// entry points return, and the message of such an error.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,6 +51,13 @@ __device__ __forceinline__ unsigned nonzero_bytes(unsigned w) {
   return m;
 }
 
+// The dtype codes of H5's and H6's columns; mirrors
+// ops/kernels/_lib.py::DTYPE_CODES. scan.cu has codes of its own.
+namespace dtype {
+enum : int { kI8 = 0, kI16 = 1, kI32 = 2, kI64 = 3, kU8 = 4, kF32 = 5,
+             kF64 = 6, kTypes = 7 };
+}  // namespace dtype
+
 }  // namespace gdf
 
 #define GDF_LAUNCH_CHECK()                       \
@@ -57,3 +65,10 @@ __device__ __forceinline__ unsigned nonzero_bytes(unsigned w) {
     cudaError_t gdf_err_ = cudaGetLastError();   \
     if (gdf_err_ != cudaSuccess) return (int)gdf_err_; \
   } while (0)
+
+// The message of a cudaError_t, which every library built from these
+// sources exports for its Python wrapper's errors: each source that
+// includes this header defines it weakly, and the link keeps one.
+extern "C" __attribute__((weak)) const char* gdf_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

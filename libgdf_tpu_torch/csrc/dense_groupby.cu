@@ -75,8 +75,7 @@ constexpr int kWarps = gdf::kWarps;
 constexpr int kTicketBytes = 16;
 constexpr int kProbeBlocksPerSM = 4;
 
-enum : long long { kI8 = 0, kI16 = 1, kI32 = 2, kI64 = 3, kU8 = 4, kF32 = 5,
-                   kF64 = 6 };
+using namespace gdf::dtype;
 enum : long long { kRows = 0, kValid = 1, kIntSum = 2, kFloatSum = 3 };
 enum : long long { kKey = 0, kSum = 1, kCount = 2, kAvg = 3 };
 

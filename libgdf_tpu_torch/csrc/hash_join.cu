@@ -61,8 +61,7 @@ constexpr long long kSmemSlots = 4096;  // the largest staged table
 constexpr int kSmemSizes = 13;                // log2 slots 0 .. 12
 constexpr unsigned long long kEmpty = ~0ull;  // an empty slot of a wide table
 
-enum : int { kI8 = 0, kI16 = 1, kI32 = 2, kI64 = 3, kU8 = 4, kF32 = 5,
-             kF64 = 6, kTypes = 7 };
+using namespace gdf::dtype;
 
 template <typename T>
 using KeyOf = std::conditional_t<sizeof(T) == 8, unsigned long long,

@@ -30,7 +30,7 @@
 //     to memory. A block of 8 warps for every 8 rows; the block scheduler
 //     keeps the card full at 81,920 rows, where a persistent grid whose
 //     warps load their next row before gathering the current one was
-//     slower on the H100 (probes/designs.py), and so was a gather from
+//     slower on the H100 (PERF.md §6), and so was a gather from
 //     registers (4 shuffles of each of the lane's 4 words, then a
 //     select). 4-byte accesses (words l + 32 k a lane, coalesced) where
 //     x, idx or out is not 16-byte aligned.

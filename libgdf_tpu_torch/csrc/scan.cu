@@ -499,8 +499,4 @@ int gdf_seg_scan(int dtype, int kind, const void* flags, const void* in,
   }
 }
 
-const char* gdf_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
 }  // extern "C"

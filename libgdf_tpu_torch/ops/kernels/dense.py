@@ -44,14 +44,13 @@ import torch
 
 from ...core.bits import flush_denormals
 from . import _lib
+from ._lib import DTYPE_CODES
 
 MAX_KEYS = 8
 MAX_SLOTS = 8
 MAX_ACCS = 8
 MAX_OUTS = 24
 
-_DT = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.int64: 3,
-       torch.uint8: 4, torch.bool: 4, torch.float32: 5, torch.float64: 6}
 KEY_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64,
               torch.uint8, torch.bool)
 VALUE_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64,
@@ -290,7 +289,7 @@ def _c_plan(n, keys, row_ok, num_rows) -> _CPlan:
     c.n, c.num_rows, c.row_ok, c.nkeys = n, _ptr(num_rows), _ptr(row_ok), \
         len(keys)
     for j, k in enumerate(keys):
-        c.key[j], c.key_dt[j] = k.data_ptr(), _DT[k.dtype]
+        c.key[j], c.key_dt[j] = k.data_ptr(), DTYPE_CODES[k.dtype]
     return c
 
 
@@ -303,7 +302,8 @@ def _tensors(what, keys, row_ok, num_rows, more=()):
     if not 0 < keys[0].shape[0] < 2 ** 31:
         raise ValueError(f"{what}: 1 to 2^31 - 1 rows")
     for k in keys:
-        if k.dim() != 1 or k.shape != keys[0].shape or k.dtype not in _DT:
+        if (k.dim() != 1 or k.shape != keys[0].shape
+                or k.dtype not in DTYPE_CODES):
             raise ValueError(f"{what}: keys must be 1-D integer columns of "
                              "one length")
     if num_rows is not None and num_rows.dtype != torch.int32:
@@ -369,8 +369,8 @@ def dense_groupby(plan: Plan):
     for a, acc in enumerate(plan.accs):
         c.acc_kind[a] = acc.kind
         if acc.values is not None:
-            c.val[a], c.val_dt[a] = acc.values.data_ptr(), _DT[
-                acc.values.dtype]
+            c.val[a] = acc.values.data_ptr()
+            c.val_dt[a] = DTYPE_CODES[acc.values.dtype]
         c.val_ok[a] = _ptr(acc.valid)
     outs, oks, shared = [], [], {}
     live = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -385,7 +385,7 @@ def dense_groupby(plan: Plan):
         outs.append(out)
         oks.append(ok)
         c.out_kind[i], c.out_cnt[i], c.out_exact[i] = o.kind, o.count, o.exact
-        c.out_dt[i] = _DT[o.dtype]
+        c.out_dt[i] = DTYPE_CODES[o.dtype]
         c.out[i], c.out_ok[i] = out.data_ptr(), _ptr(ok)
         if o.kind == KEY:
             c.out_src[i] = read.index(o.src) if o.src in read else -1

@@ -35,9 +35,7 @@ import torch
 from ...core.bits import flush_float_keys
 from . import _lib
 
-KEY_DTYPES = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.int64: 3,
-              torch.uint8: 4, torch.bool: 4, torch.float32: 5,
-              torch.float64: 6}
+KEY_DTYPES = _lib.DTYPE_CODES
 
 
 @dataclass(frozen=True)

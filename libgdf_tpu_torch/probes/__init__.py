@@ -1,8 +1,9 @@
 """Hopper counterparts of the Pallas cost probes under `benchmarks/`.
 
 Each module holds its kernels' wrappers (CUDA C++ in `csrc/probe_*.cu`,
-built with the other kernels by `ops/kernels/_lib.py`), their plain
-PyTorch versions and a `main`, which prints what its probe prints:
+built into the probes' own library, `_common.LIBRARY`, at a probe's first
+launch), their plain PyTorch versions and a `main`, which prints what its
+probe prints:
 
     python -m libgdf_tpu_torch.probes.tilesort [n] [--device cpu]
     python -m libgdf_tpu_torch.probes.gather [--device cpu]

@@ -1,6 +1,6 @@
-"""What the probes' wrappers and `main`s share: the launch of a C entry
-point, its occupancy queries, the device a `main` runs on, and its
-timer."""
+"""What the probes' wrappers and `main`s share: their kernel library, the
+launch of one of its C entry points, its occupancy queries, the device a
+`main` runs on, and its timer."""
 from __future__ import annotations
 
 import argparse
@@ -13,29 +13,56 @@ import torch
 
 from ..ops.kernels import _lib
 
+_P = ctypes.c_void_p
+_PI = ctypes.POINTER(ctypes.c_int)
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+
+# The probes' own library, built at a probe's first launch: the operators'
+# library (`_lib.KERNELS`) holds none of these.
+LIBRARY = _lib.Library("probes", (
+    "probe_caps.cu", "probe_gather.cu", "probe_roll.cu", "probe_tilesort.cu",
+    "common.cuh"), {
+    "gdf_probe_tile_sort_clusters": (_I, [_PI]),
+    "gdf_probe_tile_sort": (_I, [_P, _P, _P, _P, _I64, _P]),
+    "gdf_probe_lane_gather": (_I, [_P, _P, _P, _I64, _I, _P]),
+    "gdf_probe_sublane_occupancy": (_I, [_I, _PI]),
+    "gdf_probe_sublane_gather": (_I, [_P, _I, _P, _P, _I64, _I, _I, _I, _P]),
+    "gdf_probe_flat_take_occupancy": (_I, [_I, _PI]),
+    "gdf_probe_flat_take": (_I, [_P, _I64, _P, _P, _I64, _I, _I, _I, _P]),
+    "gdf_probe_roll_static": (_I, [_P, _P, _I64, _I, _P]),
+    "gdf_probe_roll_dynamic": (_I, [_P, _P, _P, _I64, _I, _P]),
+    "gdf_probe_cap_dyn_store": (_I, [_P, _P, _I, _P]),
+    "gdf_probe_cap_cumsum2d": (_I, [_P, _P, _I, _P]),
+    "gdf_probe_cap_onehot_compact": (_I, [_P, _P, _P, _I64, _P]),
+    "gdf_probe_cap_bulk_copy": (_I, [_P, _P, _I, _P]),
+    "gdf_probe_cap_carry": (_I, [_P, _P, _I, _P]),
+    "gdf_probe_cap_dyn_loop": (_I, [_P, _P, _I, _I, _P]),
+})
+
 
 def launch(wrapper, what: str, entry: str, *args) -> None:
-    """Call C entry point `entry` of the kernel library on the current
+    """Call C entry point `entry` of the probes' library on the current
     stream of the (CUDA) device of the tensors among `args`, which stand
     for their data pointers; raise if it fails, else count one launch of
     `wrapper`."""
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     dev = _lib.require_cuda(what, *tensors)
-    fn = getattr(_lib.lib(), entry)
+    fn = getattr(LIBRARY.load(), entry)
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(dev):
-        _lib.check(fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
-                        for a in args], _lib.stream_ptr(dev)), what)
+        LIBRARY.check(fn(*ptrs, _lib.stream_ptr(dev)), what)
     _lib.count_launch(wrapper)
 
 
 @functools.lru_cache(maxsize=None)
 def units(device_index: int, entry: str, *args) -> int:
-    """What occupancy query `entry` of the kernel library answers for its
+    """What occupancy query `entry` of the probes' library answers for its
     arguments on the card `device_index` (one call per key)."""
     out = ctypes.c_int(0)
+    fn = getattr(LIBRARY.load(), entry)
     with torch.cuda.device(device_index):
-        _lib.check(getattr(_lib.lib(), entry)(*args, ctypes.byref(out)),
-                   entry)
+        LIBRARY.check(fn(*args, ctypes.byref(out)), entry)
     return out.value
 
 

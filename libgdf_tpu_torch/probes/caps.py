@@ -72,7 +72,7 @@ STEP_ROWS, STEP_ADVANCE = 8, 5          # p4, and p6's tile
 LOOP_ROWS = 8                           # p7
 # the widest x whose 8 rows cap_dyn_loop reads whatever its trip count:
 # up to here that was no slower than reading only the rows the trip count
-# needs, at any trip count, on the H100 (`designs.py`, PERF.md)
+# needs, at any trip count, on the H100 (PERF.md §6)
 LOOP_ALL_ROWS_COLS = 16_384
 CAPS = ("cap_dyn_store", "cap_cumsum2d", "cap_onehot_compact",
         "cap_bulk_copy", "cap_carry", "cap_dyn_loop")

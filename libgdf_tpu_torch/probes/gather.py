@@ -118,9 +118,6 @@ def sublane_plan(rows: int, sms: int, blocks_per_sm: int):
     return chunk, min(most, 4 * -(-rows // chunk))
 
 
-_units = _common.units
-
-
 def _sms(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -150,7 +147,7 @@ def sublane_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     dev = _lib.require_cuda("sublane_gather", x, idx)
     chunk, grid = sublane_plan(
         idx.shape[0], _sms(dev),
-        _units(dev.index, "gdf_probe_sublane_occupancy", x.shape[0]))
+        _common.units(dev.index, "gdf_probe_sublane_occupancy", x.shape[0]))
     out = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
     _common.launch(sublane_gather, "sublane_gather",
                    "gdf_probe_sublane_gather", x, x.shape[0], idx, out,
@@ -168,7 +165,7 @@ def flat_take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return flat_take_plain(table, idx)
     dev = _lib.require_cuda("flat_take", table, idx)
     slab = take_plan(table.numel())
-    grid = take_grid(idx.numel(), _units(
+    grid = take_grid(idx.numel(), _common.units(
         dev.index, "gdf_probe_flat_take_occupancy", slab), _sms(dev))
     out = torch.empty(idx.shape, dtype=table.dtype, device=table.device)
     _common.launch(flat_take, "flat_take", "gdf_probe_flat_take", table,

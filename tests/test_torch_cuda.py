@@ -955,6 +955,24 @@ def _same(got, want):
     torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
+def test_probes_build_their_own_library(dev):
+    """The operators' built library exports none of the probes' entry
+    points; the probes' exports all of theirs and its own error string."""
+    import ctypes
+
+    from libgdf_tpu_torch.core.errors import GDFError
+    from libgdf_tpu_torch.ops.kernels import _lib
+    from libgdf_tpu_torch.probes import _common
+    ops = ctypes.CDLL(str(_lib.library_path()))
+    probe = ctypes.CDLL(str(_common.LIBRARY.build()))
+    assert not [n for n in _common.LIBRARY.signatures
+                if n.startswith("gdf_probe_") and hasattr(ops, n)]
+    assert all(hasattr(probe, n) for n in _common.LIBRARY.signatures)
+    assert all(hasattr(ops, n) for n in _lib.KERNELS.signatures)
+    with pytest.raises(GDFError, match="probe: invalid argument"):
+        _common.LIBRARY.check(1, "probe")
+
+
 @pytest.mark.parametrize("blocks", [1, 2, 176])
 def test_tile_sort(dev, blocks):
     """Every 65,536-element block sorted by (key, payload), over full-range

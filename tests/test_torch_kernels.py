@@ -23,6 +23,7 @@ from libgdf_tpu.ops.pallas import scan as ps
 from libgdf_tpu_torch.core.errors import GDFError
 from libgdf_tpu_torch.ops import engine, kernels
 from libgdf_tpu_torch.ops.kernels import _lib
+from libgdf_tpu_torch.probes import _common
 
 B = 8 * 128
 
@@ -241,14 +242,58 @@ def test_wrappers_raise_off_the_cpu_without_a_kernel():
         kernels.compact([torch.zeros(10, dtype=torch.int32)], f)
 
 
-def test_failed_build_raises(monkeypatch, tmp_path):
+@pytest.mark.parametrize("library", [_lib.KERNELS, _common.LIBRARY],
+                         ids=lambda lib: lib.name)
+def test_failed_build_raises(monkeypatch, tmp_path, library):
     """A compiler failure surfaces as a GDFError carrying its output, and
-    leaves no library behind."""
+    leaves no library behind: the operators' library and the probes'."""
     monkeypatch.setattr(_lib, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_lib, "_nvcc", lambda: "false")
     with pytest.raises(GDFError, match="nvcc failed"):
-        _lib.build()
+        library.build()
     assert list(tmp_path.iterdir()) == []
+
+
+def test_operators_and_probes_build_apart():
+    """The operators' library compiles no probe source and binds no probe
+    entry point; the probes' compiles and binds only theirs. Both hash the
+    headers their sources include, and every source exists."""
+    ops, probes = _lib.KERNELS, _common.LIBRARY
+    assert _lib.library_path() == ops.path() != probes.path()
+    assert not any(p.name.startswith("probe_") for p in ops.sources())
+    assert not any(n.startswith("gdf_probe_") for n in ops.signatures)
+    compiled = [p for p in probes.sources() if p.suffix == ".cu"]
+    assert compiled and all(p.name.startswith("probe_") for p in compiled)
+    assert all(n.startswith("gdf_probe_") for n in probes.signatures
+               if n != "gdf_cuda_error_string")
+    assert {p.name for p in ops.sources() if p.suffix == ".cuh"} == {
+        "common.cuh", "lookback.cuh"}
+    assert {p.name for p in probes.sources() if p.suffix == ".cuh"} == {
+        "common.cuh"}
+    every = {p.name for p in _lib.CSRC.iterdir()}
+    assert {p.name for p in ops.sources() + probes.sources()} == every
+
+
+
+@pytest.mark.parametrize("library", [_lib.KERNELS, _common.LIBRARY],
+                         ids=lambda lib: lib.name)
+def test_an_error_reads_its_own_library(monkeypatch, library):
+    """A failed launch's message comes from the library that returned it:
+    a probe's error never loads (or builds) the operators' library, nor an
+    operator's the probes'."""
+    class Lib:
+        @staticmethod
+        def gdf_cuda_error_string(err):
+            return f"error {err} of {library.name}".encode()
+
+    def refuse():
+        raise AssertionError("loaded the other library")
+    for lib in (_lib.KERNELS, _common.LIBRARY):
+        monkeypatch.setattr(lib, "load",
+                            (lambda: Lib) if lib is library else refuse)
+    library.check(0, "fine")
+    with pytest.raises(GDFError, match=f"what: error 98 of {library.name}"):
+        library.check(98, "what")
 
 
 def test_launch_counts_are_exact_across_threads():

@@ -216,13 +216,3 @@ def test_pipeline_equals_the_jax_package_shard_by_shard():
     out = par.dist_groupby(mesh, tj, ["k"], aggs)
     assert_sharded_match(jout, out, {"s": (1e-12, 1e-12)})
     assert out.counts.device == CPU
-
-
-def test_turns_exits_without_cuda():
-    """The distributed turns (`python -m libgdf_tpu_torch.parallel.turns`)
-    measure only on a card: without CUDA they exit 1 in both forms."""
-    if torch.cuda.is_available():
-        pytest.skip("this machine has a card")
-    from libgdf_tpu_torch.parallel import turns
-    assert turns.main(["build/parent"]) == 1
-    assert turns.main(["--cards"]) == 1

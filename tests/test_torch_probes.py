@@ -23,8 +23,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 import libgdf_tpu_torch
 from libgdf_tpu_torch import probes
-from libgdf_tpu_torch.probes import (caps, designs, gather, roll, tilesort,
-                                     turns)
+from libgdf_tpu_torch.probes import caps, gather, roll, tilesort, turns
 
 BENCH = Path(__file__).resolve().parents[1] / "benchmarks"
 
@@ -374,7 +373,7 @@ def test_flat_take_launches_the_planned_route(monkeypatch, n, slab):
     monkeypatch.setattr(gather._lib, "require_cuda",
                         lambda what, *t: torch.device("cuda", 0))
     monkeypatch.setattr(gather, "_sms", lambda dev: 132)
-    monkeypatch.setattr(gather, "_units",
+    monkeypatch.setattr(gather._common, "units",
                         lambda index, entry, *args: calls.append(
                             (entry, args)) or 2)
     monkeypatch.setattr(gather._common, "launch",
@@ -394,7 +393,7 @@ def test_sublane_gather_launches_its_plan(monkeypatch):
     monkeypatch.setattr(gather._lib, "require_cuda",
                         lambda what, *t: torch.device("cuda", 0))
     monkeypatch.setattr(gather, "_sms", lambda dev: 132)
-    monkeypatch.setattr(gather, "_units",
+    monkeypatch.setattr(gather._common, "units",
                         lambda index, entry, *args: calls.append(
                             (entry, args)) or 1)
     monkeypatch.setattr(gather._common, "launch",
@@ -899,29 +898,9 @@ def test_mains_on_the_cpu(capsys):
 
 def test_mains_need_cuda_unless_asked(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for mod in (tilesort, gather, roll, caps, designs):
+    for mod in (tilesort, gather, roll, caps):
         assert mod.main([]) == 1
     assert capsys.readouterr().out == ""
-
-
-def test_designs_sass_order(monkeypatch):
-    """designs.sass_order keeps one kernel's global loads, compares and
-    stores from a cuobjdump listing, in order, with their guards."""
-    listing = """
-        Function : _Z12cap_dyn_loopILb1ELb1EEvPKiPii
-        /*0000*/                   LDC R1, c[0x0][0x28] ;
-        /*0010*/                   ISETP.GE.U32.AND P0, PT, R2, R3, PT ;
-        /*0020*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
-        /*0030*/              @!P0 LDG.E.CONSTANT R8, desc[UR4][R6.64] ;
-        /*0040*/                   STG.E.128 desc[UR4][R10.64], R4 ;
-        Function : _Z12cap_dyn_loopILb1ELb0EEvPKiPii
-        /*0000*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
-"""
-    monkeypatch.setattr(designs._lib, "_nvcc", lambda: "/cuda/bin/nvcc")
-    monkeypatch.setattr(designs.subprocess, "run", lambda *a, **k:
-                        subprocess.CompletedProcess(a, 0, listing, ""))
-    assert designs.sass_order("lib.so", "cap_dyn_loopILb1ELb1E") == \
-        "ISETP LDG @!P0LDG STG"
 
 
 def test_turns_cases_on_the_cpu(monkeypatch, capsys):
@@ -1019,8 +998,8 @@ def test_turns_cases_on_the_cpu(monkeypatch, capsys):
 
 def test_probes_import_without_jax():
     code = ("import sys; from libgdf_tpu_torch import probes; "
-            "from libgdf_tpu_torch.probes import caps, designs, gather, "
-            "roll, tilesort, turns; probes.launch_counts(); "
+            "from libgdf_tpu_torch.probes import caps, gather, roll, "
+            "tilesort, turns; probes.launch_counts(); "
             "print('jax' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, timeout=120,
