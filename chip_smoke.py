@@ -24,7 +24,13 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    the edge sizes. H6's build and probe (`hash_build`, `hash_probe`) are
    held to their plain versions and timed at the shapes of Q18's lineitem
    join (60M int32 probe keys, 100 build keys: a table in shared memory)
-   and of Q3's (32M against 1.46M: a table in global memory). The
+   and of Q3's (32M against 1.46M: a table in global memory). H7
+   (`wide_groupby`) is held to its plain version at its tile and chunk
+   edges and at the shape of Q18's subquery (60M adjacent lines of 15M
+   orders, ~6.0e7 slots), bit-identical over repeats there, and timed
+   there and at two shapes no cell runs (those lines shuffled; 60M rows
+   into 2^10 random slots) against the sort path, which it must not be
+   slower than. The
    look-backs of H1, H2 and H3 are checked for races: H2's 10M ones scan
    to exactly 1..n (int32 and int64, forward and reverse); H3's 10M ones
    with no flag sum to exactly 1..n and with a flag every 100,003 rows to
@@ -216,7 +222,7 @@ from libgdf_tpu_torch.compat import gdf
 from libgdf_tpu_torch.io import CSVReadArg
 from libgdf_tpu_torch import probes
 from libgdf_tpu_torch.ops import kernels
-from libgdf_tpu_torch.ops.kernels import _lib, dense
+from libgdf_tpu_torch.ops.kernels import _lib
 from libgdf_tpu_torch.ops.sort import radix_encode
 from libgdf_tpu_torch.parallel import procs as procs_mod
 from libgdf_tpu_torch.parallel.mesh import Mesh
@@ -244,6 +250,9 @@ SOURCES = {
                    "libgdf_tpu/ops/join.py sorts for, of a unique build side"),
     "hash_probe": ("libgdf_tpu_torch/csrc/hash_join.cu",
                    "none: the probe of H6 (as hash_build)"),
+    "wide_groupby": ("libgdf_tpu_torch/csrc/dense_groupby.cu",
+                     "none: the group-by that libgdf_tpu/ops/groupby.py "
+                     "sorts for, over a wide integer key domain"),
 }
 # the kernels the main path must launch (its group-by takes the sort path;
 # its join on a unique build side the hash path, the one on repeated keys
@@ -270,14 +279,17 @@ WINDOWS = (("window_min_rows", "min", 10_000, ("p",), "rows"),
            ("window_sum_range", "sum", N_W // 4, (), "range"),
            ("window_max_range", "max", N_W // 4, ("p",), "range"))
 ANALYTIC_KERNELS = ("scan[int64]", "scan[float64]", "seg_scan[int32]")
+# (the ABI's sums, average and count over 1M keys take the wide path, its
+# max the sort path)
 ABI_KERNELS = ("compact", "scan[int32]", "scan[int64]", "seg_scan[int64]",
-               "seg_scan[float64]", "expand_fill")
+               "wide_groupby", "expand_fill")
 N_CSV, N_CSR, N_SEGMENTS, N_PARTS = 1_000_000, 2_500_000, 10_000, 64
 N_DIST, N_DIST_CPU, DIST_P, DIST_KEYS = 10_000_000, 1_000_000, 8, 100_000
 DIST_AGGS = [("v", "sum", "s"), ("v", "count", "c")]
 DIST_BATCHES = 2
 DIST_REPEATS = 20          # runs of the plain variant in the race check
-DIST_KERNELS = ("compact", "seg_scan", "hash_build", "hash_probe")
+DIST_KERNELS = ("compact", "seg_scan", "hash_build", "hash_probe",
+                "wide_groupby")
 # __global__ functions of libgdf_tpu_torch/csrc/*.cu, by wrapper
 # (H2 and H3 are instances of one template)
 KERNEL_NAMES = {"compact": ("compact_lookback",),
@@ -288,6 +300,7 @@ KERNEL_NAMES = {"compact": ("compact_lookback",),
                 "dense_groupby": ("dense_groupby",),
                 "hash_build": ("hash_build",),
                 "hash_probe": ("hash_probe",),
+                "wide_groupby": ("wide_init", "wide_add", "wide_extract"),
                 "tile_sort": ("tile_sort_cluster",),
                 "lane_gather": ("lane_gather_rows",),
                 "sublane_gather": ("sublane_gather_persistent",),
@@ -846,16 +859,10 @@ def q1_columns(rng, n, live, dev):
 
 
 def dense_plan(cols, keys, aggs, num_rows, valid=None):
-    """H5's plan of a group-by of `cols`, over the domain its probe reads,
-    or None where the input needs the sort path."""
-    valid = valid or {}
-    plan = dense.request([(cols[k], valid.get(k)) for k in keys],
-                         {k: (v, valid.get(k)) for k, v in cols.items()},
-                         aggs, True, num_rows)
-    if plan is None:
-        return None
-    return plan.over(kernels.domain_probe(plan.keys, plan.row_ok,
-                                          num_rows).tolist())
+    """The plan of a group-by of `cols` (`valid`: {name: validity}) over
+    the domain its probe reads, or None where the input needs the sort
+    path."""
+    return wide_plan(group_table(cols, valid, num_rows), keys, aggs)
 
 
 def same_dense(got, want, plan, what, rel=0.0):
@@ -975,6 +982,192 @@ def phase_dense(rng, dev):
             shape=shape + ("; 6 slots x 6 accumulators"
                            if name == "dense_groupby" else ""))
     return stats
+
+
+# -- H7 wide_groupby -------------------------------------------------------
+
+# TPC-H Q18's subquery at SF 10 (clause 2.4.18): every line item grouped on
+# l_orderkey, the lines of an order adjacent as dbgen writes them
+N_Q18_ORDERS = 15_000_000
+Q18_SUB = [("l_quantity", "sum", "sum_qty")]
+WIDE_REPEATS = 5           # launches held bit-identical to the first
+# the shapes no cell runs: (name, keys of 60M rows) beside Q18's
+RANDOM_SLOTS = 2 ** 10
+
+
+def groupby_module():
+    import importlib
+    return importlib.import_module("libgdf_tpu_torch.ops.groupby")
+
+
+def q18_lines(rng, dev, orders=N_Q18_ORDERS):
+    """l_orderkey (int32) and l_quantity (float64) as Q18's subquery reads
+    them: order keys as TPC-H makes them (the first 8 of every 32, so 1 to
+    59,999,976 at 15M orders), 1 to 7 lines an order, in order, quantities
+    1 to 50."""
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    o = torch.arange(orders, device=dev)
+    okey = ((o // 8) * 32 + o % 8 + 1).to(torch.int32)
+    lines = torch.randint(1, 8, (orders,), generator=g, device=dev)
+    key = torch.repeat_interleave(okey, lines)
+    qty = torch.randint(1, 51, (key.shape[0],), generator=g,
+                        device=dev).double()
+    return key, qty
+
+
+def group_table(cols, valid=None, num_rows=None):
+    """A Table of the columns `cols` ({name: tensor}), their validity
+    (`valid`: {name: tensor}) and a live row count (None: all)."""
+    valid = valid or {}
+    return Table.from_columns(
+        [Column.from_array(v, valid=valid.get(k), name=k)
+         for k, v in cols.items()],
+        num_rows=None if num_rows is None else num_rows.to(torch.int32))
+
+
+def wide_plan(table, keys, aggs):
+    """The dense or wide plan the group-by of `table` takes, or None where
+    it sorts."""
+    return groupby_module()._dense_plan(
+        table, [table.column(k) for k in keys], aggs, True)
+
+
+def sort_groupby(table, keys, aggs):
+    """The sort path's group-by of the same input."""
+    return groupby_module()._sort_groupby(
+        table, keys, [table.column(k) for k in keys], aggs, True)
+
+
+def check_wide_edges(rng, dev):
+    """H7 at the edges of its tiles and chunks: 9 to 50,000 slots (its
+    shared-memory instance up to 48 KB of slots, its global one past it),
+    one and two keys, int8 to int64 keys, dead rows with stale keys, null
+    keys, a nullable float32 column, int32 and int8 sums, sums of quarters
+    (exact in any order), against its plain version."""
+    domains = (9, 100, 1000, 5000, 50_000)
+    held = []
+    for i, m in enumerate(EDGE_SIZES):
+        live = torch.tensor(m - m // 7, dtype=torch.int32, device=dev)
+        d = domains[i % len(domains)]
+        two = i % 2 == 1
+        kdt = (torch.int16, torch.int32, torch.int64)[i % 3]
+        span0 = max(d // 3, 3) if two else d
+        cols = {"k0": torch.as_tensor(rng.integers(0, span0, m) - 1000,
+                                      device=dev).to(kdt),
+                "k1": torch.as_tensor(rng.integers(0, 3, m),
+                                      device=dev).to(torch.int8),
+                "f64": torch.as_tensor(rng.integers(-4000, 4000, m) / 4,
+                                       device=dev),
+                "f32": torch.as_tensor(rng.integers(-4000, 4000, m) / 4,
+                                       device=dev).float(),
+                "i32": torch.as_tensor(rng.integers(-9, 9, m),
+                                       device=dev).to(torch.int32),
+                "i8": torch.as_tensor(rng.integers(-128, 128, m),
+                                      device=dev).to(torch.int8)}
+        if m > 2:
+            cols["k0"][:2] = torch.tensor([-1000, -1000 + span0 - 1])
+        cols["k0"][int(live):] = 30_000          # stale keys, far outside
+        aggs = [("f64", "sum", "s"), ("f64", "avg", "a"), ("f32", "sum", "t"),
+                ("f32", "count", "c"), ("i32", "sum", "i"),
+                ("i8", "avg", "j")]
+        valid = {"f32": torch.as_tensor(rng.random(m) < 0.9, device=dev)}
+        if i % 4 == 3:
+            valid["k0"] = torch.as_tensor(rng.random(m) < 0.95, device=dev)
+        keys = ["k0", "k1"] if two else ["k0"]
+        t = group_table(cols, valid, live)
+        plan = wide_plan(t, keys, aggs)
+        if plan is None or not plan.wide:
+            continue       # a domain too wide for its rows: the sort path
+        same_dense(kernels.wide_groupby(plan),
+                   kernels.dense_groupby_plain(plan), plan,
+                   f"wide_groupby n={m} slots={plan.slots}")
+        held.append((m, plan.slots, plan.slots * plan.slot_bytes))
+    print(f"wide_groupby: held to its plain version at (rows, slots, slot "
+          f"bytes) {held}", flush=True)
+
+
+def time_against_sort(what, table, keys, aggs, card):
+    """H7 and the sort path over one table: each group-by's device ms
+    (CUDA events) and enqueue ms, H7's groups held to the sort path's and
+    to its plain version's. Returns H7's plan and times."""
+    plan = wide_plan(table, keys, aggs)
+    if plan is None or not plan.wide:
+        fail(f"wide_groupby {what}: the input does not take the wide path")
+    got = kernels.wide_groupby(plan)
+    same_dense(got, kernels.dense_groupby_plain(plan), plan,
+               f"wide_groupby {what}")
+    want = sort_groupby(table, keys, aggs)
+    g = int(want.num_rows)
+    if int(got[3]) != g:
+        fail(f"wide_groupby {what}: {int(got[3])} groups, the sort path {g}")
+    for i, c in enumerate(want.columns):
+        exact(got[0][i][:g].cpu(), c.data[:g].cpu(),
+              f"wide_groupby {what} against the sort path, {c.name}")
+    h7 = cuda_ms(lambda: kernels.wide_groupby(plan))
+    srt = cuda_ms(lambda: sort_groupby(table, keys, aggs))
+    print(f"wide_groupby {what}: H7 {h7:.4f} ms, the sort path {srt:.4f} ms "
+          f"({srt / h7:.2f}x; H7 enqueue "
+          f"{host_ms(lambda: kernels.wide_groupby(plan)):.4f} ms; "
+          f"{plan.slots} slots, {g} groups; {card})", flush=True)
+    if h7 > srt:
+        fail(f"wide_groupby {what}: slower than the sort path")
+    return plan, h7, srt
+
+
+def phase_wide(rng, dev):
+    """H7 at its edges, then at Q18's shape held to its plain version and
+    to the sort path, its repeats bit-identical, timed; then at two shapes
+    no cell runs (Q18's keys shuffled; 2^10 random slots), each timed
+    against the sort path, which H7 must not be slower than. Returns H7's
+    stats."""
+    card = card_line()
+    check_wide_edges(rng, dev)
+    key, qty = q18_lines(rng, dev)
+    n = key.shape[0]
+    t = group_table({"l_orderkey": key, "l_quantity": qty})
+    plan, h7_ms, sort_ms = time_against_sort("at Q18's shape", t,
+                                             ["l_orderkey"], Q18_SUB, card)
+    got = kernels.wide_groupby(plan)
+    for r in range(WIDE_REPEATS):
+        same_dense(kernels.wide_groupby(plan), got, plan,
+                   f"wide_groupby repeat {r}")
+    print(f"wide_groupby: {WIDE_REPEATS} repeats at Q18's shape "
+          "bit-identical", flush=True)
+    kernels.reset_launch_counts()
+    kernels.wide_groupby(plan)
+    if kernels.launch_counts()["seg_scan"] or kernels.launch_counts()[
+            "compact"]:
+        fail("wide_groupby launched the sort path's kernels")
+    run = lambda: kernels.wide_groupby(plan)                 # noqa: E731
+    dev_ms, launches, acts = profiled(run, KERNEL_NAMES["wide_groupby"],
+                                      expect=3)
+    print(f"wide_groupby: {launches} launches a call, device activities "
+          f"{acts}", flush=True)
+    groups = int(got[3])
+    moved = (n * (key.element_size() + qty.element_size())
+             + 2 * plan.slots * plan.slot_bytes
+             + groups * (key.element_size() + qty.element_size() + 1))
+    perm = torch.randperm(n, device=dev)
+    shuffled = group_table({"l_orderkey": key[perm],
+                            "l_quantity": qty[perm]})
+    time_against_sort("shuffled (60M rows, 15M slots)", shuffled,
+                      ["l_orderkey"], Q18_SUB, card)
+    del shuffled, perm
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    small = group_table(
+        {"l_orderkey": torch.randint(0, RANDOM_SLOTS, (n,), generator=g,
+                                     device=dev, dtype=torch.int32),
+         "l_quantity": qty})
+    time_against_sort(f"at {RANDOM_SLOTS} random slots (60M rows)", small,
+                      ["l_orderkey"], Q18_SUB, card)
+    del small
+    return dict(max_abs_err=0.0, ms=h7_ms, profiler_ms=dev_ms,
+                host_ms=host_ms(run), plain_ms=cuda_ms(
+                    lambda: kernels.dense_groupby_plain(plan)),
+                library_ms=None, bound_ms=bound_ms(moved), bound_by="bytes",
+                sort_ms=sort_ms,
+                shape=f"{n} rows, an int32 key, a float64 sum, "
+                      f"{plan.slots} slots, {groups} groups")
 
 
 # -- H6 hash_build / hash_probe -----------------------------------------------
@@ -2960,6 +3153,7 @@ def main(argv=None):
                          (("seg_scan",), phase_seg_scan),
                          (("expand_fill",), phase_expand),
                          (("domain_probe", "dense_groupby"), phase_dense),
+                         (("wide_groupby",), phase_wide),
                          (("hash_build", "hash_probe"), phase_hash)):
         t0 = time.perf_counter()
         got = phase(rng, dev)

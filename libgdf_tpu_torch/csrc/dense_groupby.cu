@@ -1,5 +1,6 @@
 // H5 `dense_groupby` and its domain probe: a group-by over a small integer
-// key domain in one pass, without a sort.
+// key domain in one pass, without a sort; and H7 `wide_groupby`, the same
+// over a wide one, through slot arrays in device memory.
 //
 // Replaces no TPU kernel. The JAX package groups by sorting, because XLA on
 // a TPU has no scatter-free alternative, and so does the port's sort path
@@ -51,7 +52,33 @@
 //   sort path computes it), the validity of a nullable column's
 //   aggregates, `live` for the groups, and the group count. Keys whose
 //   span is 1 are constants: H5 does not read them and writes their value.
-#include "common.cuh"
+//
+// H7 (`wide_groupby`): the domain of D > 8 slots, as wide as the caller
+// allows (ops/kernels/dense.py: while its slot arrays take no more bytes
+// than the sort path's per-row buffers would). Every slot has its rows
+// (int32; > 0 marks a group) and each further accumulator (8 bytes) in an
+// array indexed by the slot. Bound: device memory. It reads the rows'
+// keys and values once, sets the slot arrays and reads them back, and
+// writes the groups: TPC-H Q18's subquery at SF 10 (60M rows, an int32
+// key, a float64 sum, D ~ 6.0e7, 15M groups) is 0.72 + 0.72 + 0.72 +
+// 0.20 GB, 0.70 ms at 3.35 TB/s; its atomics also read and write the slot
+// arrays once more through L2 where the domain does not fit there.
+// Design: three launches. `wide_init` sets every slot to its identities
+// (a float sum's is -0.0). `wide_add` walks the rows in contiguous chunks,
+// a warp each, and adds one atomic per run of adjacent rows with the same
+// slot (a segmented scan across the warp, the open run carried from one
+// load to the next): a group whose rows are adjacent, as lineitem's rows
+// of an order are, reaches its slot once from each warp that holds some
+// of them, at most twice where the group is shorter than a warp's chunk
+// (~14K rows at Q18's shape), and two addends into -0.0 commute, so its
+// sums are the same from run to run. Where the slot arrays fit 48 KB,
+// each block adds into its own copy in shared memory and then adds each
+// occupied slot of it to the card's, which keeps a few thousand slots in
+// random order off L2's contended atomics. `wide_extract` is one
+// decoupled look-back compaction over the slots (lookback.cuh, as H1):
+// occupied slots in slot order, which is key order, written as H5 writes
+// its groups (keys decoded from the slot, no key array materialised).
+#include "lookback.cuh"
 
 #include <float.h>
 #include <limits.h>
@@ -185,8 +212,8 @@ __device__ __forceinline__ unsigned long long combine(unsigned long long a,
 }
 
 // An integer written in a column of dtype dt (wrapping to its width).
-__device__ __forceinline__ void store_int(void* out, long long dt, int g,
-                                          long long v) {
+__device__ __forceinline__ void store_int(void* out, long long dt,
+                                          long long g, long long v) {
   switch (dt) {
     case kI8: case kU8: static_cast<signed char*>(out)[g] = (signed char)v;
       break;
@@ -215,11 +242,10 @@ __device__ __forceinline__ double held_sum(unsigned long long x,
   }
 }
 
-// Output column o of group g, the domain's slot s; tot: the slot totals.
-template <int A>
-__device__ void write_out(const Plan& p, int o, int g, int s,
-                          const unsigned long long* tot) {
-  const unsigned long long* t = tot + s * A;
+// Output column o of group g, the domain's slot s; t: the slot's totals,
+// accumulator a at t[a].
+__device__ void write_out(const Plan& p, int o, long long g, long long s,
+                          const unsigned long long* t) {
   void* out = p.out[o];
   const long long dt = p.out_dt[o];
   const long long src = p.out_src[o];
@@ -457,7 +483,9 @@ dense_groupby(const __grid_constant__ Plan p, int D,
   const int nout = (int)p.nout;
   for (int i = threadIdx.x; i < nout * D; i += kThreads) {
     const int g = i % D;
-    if (g < groups) write_out<A>(p, i / D, g, s_slot[g], s_tot);
+    if (g < groups) {
+      write_out(p, i / D, g, s_slot[g], s_tot + s_slot[g] * A);
+    }
   }
   for (int g = threadIdx.x; g < groups; g += kThreads) p.live[g] = 1;
 }
@@ -607,6 +635,307 @@ domain_probe(const __grid_constant__ Plan p, unsigned* __restrict__ ticket,
   }
 }
 
+// ---- H7: the wide domain ----------------------------------------------------
+
+constexpr int kWideTileSlots = kThreads * 16;   // the extract's tile
+constexpr int kWidePad = 16;                    // slot arrays padded to 16
+// Slot arrays a block may hold in shared memory (four blocks an SM fit).
+constexpr long long kWideSmemBytes = 48 * 1024;
+
+// Bytes of a slot: the rows (int32) and each further accumulator (8 bytes).
+__host__ __device__ constexpr long long wide_slot_bytes(long long accs) {
+  return 4 + 8 * (accs - 1);
+}
+
+// H7's slot arrays in device memory, each padded to dp = D rounded up to
+// kWidePad slots: the rows of each slot, then accumulator a (a >= 1) at
+// acc + (a - 1) * dp.
+struct Slots {
+  int* cnt;
+  unsigned long long* acc;
+  long long dp;
+};
+
+__device__ __forceinline__ bool is_fsum(const Plan& p, int a) {
+  return p.acc_kind[a] == kFloatSum;
+}
+
+__device__ __forceinline__ unsigned long long identity(const Plan& p, int a) {
+  return is_fsum(p, a) ? kNegZero : 0ull;
+}
+
+// Every slot to its accumulators' identities (a float sum's is -0.0, which
+// a memset cannot write), as 16-byte stores.
+__global__ void __launch_bounds__(kThreads)
+wide_init(const __grid_constant__ Plan p, Slots s) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long nt = (long long)gridDim.x * kThreads;
+  uint4* cnt = reinterpret_cast<uint4*>(s.cnt);
+  for (long long q = t; q < s.dp / 4; q += nt) cnt[q] = make_uint4(0, 0, 0, 0);
+  for (int a = 1; a < (int)p.nacc; ++a) {
+    const unsigned long long v = identity(p, a);
+    const uint4 w = make_uint4((unsigned)v, (unsigned)(v >> 32), (unsigned)v,
+                               (unsigned)(v >> 32));
+    uint4* acc = reinterpret_cast<uint4*>(s.acc + (a - 1) * s.dp);
+    for (long long q = t; q < s.dp / 2; q += nt) acc[q] = w;
+  }
+}
+
+// A run's totals x into slot `slot` of the arrays (cnt, acc), accumulator
+// a at acc + (a - 1) * stride: an atomic each, none for an identity.
+template <int A>
+__device__ __forceinline__ void add_run(const Plan& p, int* cnt,
+                                        unsigned long long* acc,
+                                        long long stride, long long slot,
+                                        const unsigned long long* x) {
+  atomicAdd(cnt + slot, (int)x[0]);
+#pragma unroll
+  for (int a = 1; a < A; ++a) {
+    if (a >= (int)p.nacc || x[a] == identity(p, a)) continue;
+    unsigned long long* q = acc + (a - 1) * stride + slot;
+    if (is_fsum(p, a)) {
+      atomicAdd(reinterpret_cast<double*>(q),
+                __longlong_as_double((long long)x[a]));
+    } else {
+      atomicAdd(q, x[a]);
+    }
+  }
+}
+
+// Rows a lane loads per step, all in flight: four for one key, two for up
+// to eight (their loads' registers).
+__host__ __device__ constexpr int wide_unroll(int k) { return k == 1 ? 4 : 2; }
+
+// H7's add (`wide_add<A, K, SMEM>`: A accumulators, K keys read, the slot
+// arrays in shared memory or not). Warp w takes rows [w chunk, (w + 1)
+// chunk) in order, 32 adjacent rows a load. Lanes whose adjacent rows
+// share a slot form a run: a segmented scan across the warp adds each
+// run's values into its last lane, and the run open at lane 31 is carried
+// into the next load. One atomic goes out per run and accumulator, so a
+// group whose rows are adjacent reaches its slot once from each warp that
+// holds some of them. With SMEM the block adds into its own copy of the
+// slot arrays first, then adds each occupied slot of it to the card's.
+template <int A, int K, bool SMEM>
+__global__ void __launch_bounds__(kThreads)
+wide_add(const __grid_constant__ Plan p, Slots s, long long D,
+         long long chunk) {
+  constexpr int U = wide_unroll(K);
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ unsigned long long s_wide[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nacc = (int)p.nacc;
+  const int nkeys = (int)p.nkeys;
+  int* cnt = s.cnt;
+  unsigned long long* acc = s.acc;
+  long long stride = s.dp;
+  if (SMEM) {
+    acc = s_wide;
+    cnt = reinterpret_cast<int*>(s_wide + (nacc - 1) * D);
+    stride = D;
+    for (long long i = threadIdx.x; i < D; i += kThreads) {
+      cnt[i] = 0;
+      for (int a = 1; a < nacc; ++a) acc[(a - 1) * D + i] = identity(p, a);
+    }
+    __syncthreads();
+  }
+
+  Col keys[K], vals[A];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    keys[j] = col_of(p.key[j], p.key_dt[j]);
+    if (j >= nkeys) keys[j].base = nullptr;
+  }
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    vals[a] = col_of(p.val[a], p.val_dt[a]);
+    if (a >= nacc || (p.acc_kind[a] != kIntSum &&
+                      p.acc_kind[a] != kFloatSum)) {
+      vals[a].base = nullptr;
+    }
+  }
+  const Col row_ok = col_of(p.row_ok, kU8);
+  const long long live = live_rows(p);
+  const long long start = ((long long)blockIdx.x * kWarps + warp) * chunk;
+  const long long end = start + chunk < live ? start + chunk : live;
+
+  long long cslot = -1;              // the carried run: its slot
+  unsigned long long cv[A];          // and its totals
+#pragma unroll
+  for (int a = 0; a < A; ++a) cv[a] = a < nacc ? identity(p, a) : 0ull;
+
+  for (long long base = start; base < end; base += 32 * U) {
+    unsigned long long kw[K][U], vw[A][U], okw[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long r = base + 32 * u + lane;
+      const bool in = r < end;
+#pragma unroll
+      for (int j = 0; j < K; ++j) kw[j][u] = load_word(keys[j], r, in);
+#pragma unroll
+      for (int a = 0; a < A; ++a) vw[a][u] = load_word(vals[a], r, in);
+      okw[u] = load_word(row_ok, r, in);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long r = base + 32 * u + lane;
+      bool in = r < end;
+      if (row_ok.base != nullptr && extract(row_ok, okw[u], r) == 0) {
+        in = false;
+      }
+      long long slot = -1;           // a row not taken: no slot
+      if (in) {
+        slot = 0;
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          if (j < nkeys) {
+            slot = slot * p.key_span[j] +
+                   ((long long)extract(keys[j], kw[j][u], r) - p.key_lo[j]);
+          }
+        }
+      }
+      unsigned long long x[A];
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        x[a] = 0ull;
+        if (a >= nacc) continue;
+        const long long kind = p.acc_kind[a];
+        const bool take = in && (kind == kRows || p.val_ok[a] == nullptr ||
+                                 __ldg(p.val_ok[a] + r) != 0);
+        if (kind == kFloatSum) {
+          x[a] = take ? (unsigned long long)__double_as_longlong(as_double(
+                            extract(vals[a], vw[a][u], r), p.val_dt[a]))
+                      : kNegZero;
+        } else if (kind == kIntSum) {
+          x[a] = take ? extract(vals[a], vw[a][u], r) : 0ull;
+        } else {
+          x[a] = take ? 1ull : 0ull;
+        }
+      }
+      // the carried run joins lane 0's, or goes out
+      if (lane == 0) {
+        if (slot == cslot) {
+#pragma unroll
+          for (int a = 0; a < A; ++a) {
+            if (a < nacc) x[a] = combine(cv[a], x[a], is_fsum(p, a));
+          }
+        } else if (cslot >= 0) {
+          add_run<A>(p, cnt, acc, stride, cslot, cv);
+        }
+      }
+      const long long prev = __shfl_up_sync(kAll, slot, 1);
+      const unsigned heads = __ballot_sync(kAll, lane == 0 || slot != prev);
+      if (heads != kAll) {
+        // the head of this lane's run: the nearest head at or below it
+        const int head = 31 - __clz((int)(heads & ((2u << lane) - 1u)));
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+          for (int a = 0; a < A; ++a) {
+            const unsigned long long y = __shfl_up_sync(kAll, x[a], d);
+            if (a < nacc && lane - d >= head) {
+              x[a] = combine(y, x[a], is_fsum(p, a));
+            }
+          }
+        }
+      }
+      const bool last = lane == 31 || ((heads >> (lane + 1)) & 1u);
+      if (last && lane != 31 && slot >= 0) {
+        add_run<A>(p, cnt, acc, stride, slot, x);
+      }
+      cslot = __shfl_sync(kAll, slot, 31);
+#pragma unroll
+      for (int a = 0; a < A; ++a) cv[a] = __shfl_sync(kAll, x[a], 31);
+    }
+  }
+  if (lane == 0 && cslot >= 0) add_run<A>(p, cnt, acc, stride, cslot, cv);
+
+  if (SMEM) {
+    __syncthreads();
+    for (long long i = threadIdx.x; i < D; i += kThreads) {
+      if (cnt[i] == 0) continue;
+      unsigned long long x[A];
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        x[a] = a == 0 ? (unsigned long long)cnt[i]
+             : a < nacc ? acc[(a - 1) * D + i] : 0ull;
+      }
+      add_run<A>(p, s.cnt, s.acc, s.dp, i, x);
+    }
+  }
+}
+
+struct CountSum {
+  static __device__ int ident() { return 0; }
+  static __device__ int apply(int a, int b) { return a + b; }
+};
+
+// H7's extract: a decoupled look-back compaction (lookback.cuh) over tiles
+// of kWideTileSlots slots. A thread reads 16 slots' rows as four 16-byte
+// vectors; the occupied slots (rows > 0) are ranked in slot order, which
+// is key order, and their places in the tile go to shared memory; then
+// the block writes the tile's groups, a thread a group, so that a warp's
+// stores to each output are 32 adjacent rows.
+__global__ void __launch_bounds__(kThreads)
+wide_extract(const __grid_constant__ Plan p, Slots s, long long D,
+             gdf::Descs d) {
+  __shared__ long long s_tile;
+  __shared__ int s_warp[kWarps];
+  __shared__ int s_offset;
+  __shared__ int s_slot[kWideTileSlots];
+  const long long tile = gdf::next_tile(d, &s_tile);
+  const long long base = tile * kWideTileSlots;
+  const int r0 = threadIdx.x * 16;
+  unsigned mask = 0;
+  if (base + r0 < s.dp) {            // all 16 slots, or none (dp: 16 k)
+    const uint4* c = reinterpret_cast<const uint4*>(s.cnt + base + r0);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint4 v = c[q];
+      mask |= ((int)v.x > 0 ? 1u : 0u) << (4 * q) |
+              ((int)v.y > 0 ? 1u : 0u) << (4 * q + 1) |
+              ((int)v.z > 0 ? 1u : 0u) << (4 * q + 2) |
+              ((int)v.w > 0 ? 1u : 0u) << (4 * q + 3);
+    }
+  }
+  int kept;
+  const int rank = gdf::block_exclusive_sum(__popc(mask), s_warp, &kept);
+#pragma unroll
+  for (int b = 0; b < 16; ++b) {
+    if ((mask >> b) & 1u) {
+      s_slot[rank + __popc(mask & ((1u << b) - 1u))] = r0 + b;
+    }
+  }
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int offset = 0;
+    if (tile == 0) {
+      if (lane == 0) gdf::publish<int>(d, 0, gdf::kPrefix, kept);
+    } else {
+      if (lane == 0) gdf::publish<int>(d, tile, gdf::kAggregate, kept);
+      offset = gdf::look_back<int, CountSum, false>(d, tile, nullptr);
+      if (lane == 0) gdf::publish<int>(d, tile, gdf::kPrefix, offset + kept);
+    }
+    if (lane == 0) {
+      s_offset = offset;
+      if (base + kWideTileSlots >= D) *p.groups = offset + kept;
+    }
+  }
+  __syncthreads();
+  const long long offset = s_offset;
+  const int nacc = (int)p.nacc;
+  const int nout = (int)p.nout;
+  for (int j = threadIdx.x; j < kept; j += kThreads) {
+    const long long slot = base + s_slot[j];
+    const long long g = offset + j;
+    unsigned long long t[kMaxAccs];
+    t[0] = (unsigned long long)s.cnt[slot];
+    for (int a = 1; a < nacc; ++a) t[a] = s.acc[(a - 1) * s.dp + slot];
+    for (int o = 0; o < nout; ++o) write_out(p, o, g, slot, t);
+    p.live[g] = 1;
+  }
+}
+
 // ---- launch ---------------------------------------------------------------
 
 using Kernel = void (*)(const Plan, int, unsigned*, unsigned long long*);
@@ -710,6 +1039,68 @@ bool plan_fits(const Plan& p) {
          p.acc_kind[0] == kRows && p.nout >= 0 && p.nout <= kMaxOuts;
 }
 
+// H7 is built for A in {2, 4, 8}, one key read or up to eight, and its
+// slot arrays in shared memory or not: 12 instances. A group-by takes the
+// instance of its accumulators rounded up (the extra ones idle).
+using WideKernel = void (*)(const Plan, Slots, long long, long long);
+constexpr int kWideSizes = 3;
+
+__host__ __device__ constexpr int wide_accs(int i) {
+  return i == 0 ? 2 : i == 1 ? 4 : 8;
+}
+
+template <int... I>
+constexpr std::array<WideKernel, sizeof...(I)> wide_instances(
+    std::integer_sequence<int, I...>) {
+  return {&wide_add<wide_accs(I / 4), (I / 2) % 2 == 1 ? kMaxKeys : 1,
+                    I % 2 == 1>...};
+}
+
+const std::array<WideKernel, kWideSizes * 4> kWideKernels =
+    wide_instances(std::make_integer_sequence<int, kWideSizes * 4>{});
+
+int wide_index(long long accs, long long nkeys, bool smem) {
+  const int a = accs <= 2 ? 0 : accs <= 4 ? 1 : 2;
+  return a * 4 + (nkeys > 1 ? 2 : 0) + (smem ? 1 : 0);
+}
+
+long long round_up(long long x, long long m) { return (x + m - 1) / m * m; }
+
+// H7's scratch for D slots and `accs` accumulators: the extract's tile
+// counter and look-back descriptors (`descs` bytes, zeroed at each
+// launch), then the slot arrays, dp slots each.
+struct WideLayout {
+  long long tiles, descs, dp, total;
+};
+
+WideLayout wide_layout(long long slots, long long accs) {
+  WideLayout l;
+  l.tiles = (slots + kWideTileSlots - 1) / kWideTileSlots;
+  l.descs = round_up(gdf::lookback_scratch_bytes<int>(l.tiles), 16);
+  l.dp = round_up(slots, kWidePad);
+  l.total = l.descs + l.dp * wide_slot_bytes(accs);
+  return l;
+}
+
+// Blocks of wide_add instance `index` an SM holds with `smem` bytes of
+// shared memory, asked once a card and instance where that is 0.
+int wide_occupancy(int index, long long smem, int* per_sm) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  static int cached[kMaxDevices][kWideSizes * 4] = {};
+  int* occ = smem == 0 ? &cached[dev][index] : per_sm;
+  if (smem != 0 || *occ == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        occ, kWideKernels[index], kThreads, (size_t)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (*occ <= 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  *per_sm = *occ;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -801,6 +1192,75 @@ int gdf_dense_groupby(int slots, const void* plan, void* scratch,
                          s>>>(
       p, slots, reinterpret_cast<unsigned*>(base),
       reinterpret_cast<unsigned long long*>(base + kTicketBytes));
+  GDF_LAUNCH_CHECK();
+  return 0;
+}
+
+// Bytes of scratch that gdf_wide_groupby needs for `slots` slots and
+// `accs` accumulators, or -1 (a cudaError_t in *err).
+long long gdf_wide_groupby_scratch_bytes(long long slots, int accs,
+                                         int* err) {
+  if (slots < 1 || accs < 1 || accs > kMaxAccs) {
+    *err = (int)cudaErrorInvalidValue;
+    return -1;
+  }
+  *err = 0;
+  return wide_layout(slots, accs).total;
+}
+
+// H7: the group-by of `plan` over a domain of `slots` slots (the product
+// of its read keys' spans), any number, with plan->nacc accumulators a
+// slot. Writes what gdf_dense_groupby writes (the caller zeroes `live`
+// and the validity arrays). scratch: gdf_wide_groupby_scratch_bytes
+// bytes; its look-back part is zeroed here on the stream, its slot arrays
+// set by the first of three launches. Returns a cudaError_t.
+int gdf_wide_groupby(long long slots, const void* plan, void* scratch,
+                     long long nbytes, void* stream) {
+  const Plan& p = *static_cast<const Plan*>(plan);
+  if (!plan_fits(p) || p.nkeys < 1 || slots < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  long long prod = 1;
+  for (long long j = 0; j < p.nkeys; ++j) {
+    if (p.key_span[j] < 1 || prod > slots) return (int)cudaErrorInvalidValue;
+    prod *= p.key_span[j];
+  }
+  const WideLayout l = wide_layout(slots, p.nacc);
+  if (prod != slots || nbytes < l.total) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  gdf::Descs d;
+  int err = gdf::init_scratch(scratch, nbytes, l.descs, s, &d);
+  if (err != 0) return err;
+  char* base = static_cast<char*>(scratch) + l.descs;
+  const Slots sl{reinterpret_cast<int*>(base),
+                 reinterpret_cast<unsigned long long*>(base + 4 * l.dp),
+                 l.dp};
+  int sms = 0, per_sm = 0;
+  err = device_limits(nullptr, &sms, &per_sm);
+  if (err != 0) return err;
+  const long long quads = (l.dp / 4 + kThreads - 1) / kThreads;
+  const long long init_grid = quads < 8LL * sms ? quads : 8LL * sms;
+  wide_init<<<(unsigned)init_grid, kThreads, 0, s>>>(p, sl);
+  GDF_LAUNCH_CHECK();
+
+  const long long smem = slots * wide_slot_bytes(p.nacc);
+  const bool in_smem = smem <= kWideSmemBytes;
+  const int index = wide_index(p.nacc, p.nkeys, in_smem);
+  err = wide_occupancy(index, in_smem ? smem : 0, &per_sm);
+  if (err != 0) return err;
+  // each warp a chunk of whole loads; as many warps as the SMs hold
+  const long long step = 32LL * wide_unroll(p.nkeys > 1 ? kMaxKeys : 1);
+  const long long steps = (p.n + step - 1) / step;
+  const long long most = (long long)sms * per_sm * kWarps;
+  const long long warps = steps < most ? steps : most;
+  const long long chunk = (steps + warps - 1) / warps * step;
+  const long long grid = ((p.n + chunk - 1) / chunk + kWarps - 1) / kWarps;
+  kWideKernels[index]<<<(unsigned)grid, kThreads,
+                        in_smem ? (size_t)smem : 0, s>>>(p, sl, slots,
+                                                         chunk);
+  GDF_LAUNCH_CHECK();
+
+  wide_extract<<<(unsigned)l.tiles, kThreads, 0, s>>>(p, sl, slots, d);
   GDF_LAUNCH_CHECK();
   return 0;
 }

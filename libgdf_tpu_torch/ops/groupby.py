@@ -2,7 +2,7 @@
 
 Counterpart of `libgdf_tpu/ops/groupby.py` (≅ gdf_group_by_{sum,min,max,
 avg,count}, libgdf/src/sqls_ops.cu:1426-1487, and the sort path of
-sqls_rtti_comp.hpp:400-660). Two paths, chosen from the input alone:
+sqls_rtti_comp.hpp:400-660). Three paths, chosen from the input alone:
 
 - the dense path, where every key is an integer column (int8 .. int64,
   date32, bool), no key is nullable under `dropna=False`, every aggregate
@@ -11,6 +11,11 @@ sqls_rtti_comp.hpp:400-660). Two paths, chosen from the input alone:
   key's min and max over the live rows whose keys are all valid (the
   group-by's one host read, `groupby.domain`), then H5 aggregates every
   row into its slot's accumulators in one pass (ops/kernels/dense.py);
+- the wide path, for such an input whose domain is wider, where H7's slot
+  arrays (the domain's slots x 4 bytes for the rows and 8 for each further
+  accumulator) take no more bytes than the sort path's own per-row
+  buffers would (`_sort_bytes`): after the same probe, H7 adds every row
+  into slot arrays in device memory and compacts the occupied slots;
 - the sort path, for every other input, with the JAX package's algorithm:
 
     sort:       key flags and encodings packed into 64-bit words; one
@@ -21,12 +26,13 @@ sqls_rtti_comp.hpp:400-660). Two paths, chosen from the input alone:
     extract:    one compaction (H1) keeps the group-last rows; keys are
                 decoded from the sorted words.
 
-Each group-by counts its path (`groupby.dense` / `groupby.sort`) in
-`utils.tracing.counters()` and runs inside the span of that name. The sort
-path also adds its input capacity to `groupby.sort.rows`, and splits its
-time after the sort (`libgdf.sort`) into `libgdf.groupby.sort.scan` (the
-scans) and `libgdf.groupby.sort.extract` (the boundaries, the key decode
-and the compaction).
+Each group-by counts its path (`groupby.dense` / `groupby.wide` /
+`groupby.sort`) in `utils.tracing.counters()` and runs inside the span of
+that name (`libgdf.groupby.dense`, ...). The sort path also adds its input
+capacity to `groupby.sort.rows`, and splits its time after the sort
+(`libgdf.sort`) into `libgdf.groupby.sort.scan` (the scans) and
+`libgdf.groupby.sort.extract` (the boundaries, the key decode and the
+compaction).
 Output rows come sorted by key. Null semantics are the JAX package's
 (pandas-like): `dropna=True` drops null-key rows, `dropna=False` makes each
 null-key row a group of its own (NULL != NULL); aggregates skip null
@@ -91,8 +97,9 @@ def _groupby_impl(table: Table, key_names, aggs, dropna: bool) -> Table:
     key_cols = [table.column(k) for k in key_names]
     plan = _dense_plan(table, key_cols, aggs, dropna)
     if plan is not None:
-        count("groupby.dense")
-        with span("libgdf.groupby.dense"):
+        path = "groupby.wide" if plan.wide else "groupby.dense"
+        count(path)
+        with span("libgdf." + path):
             return _dense_groupby(plan, key_names, key_cols, aggs)
     count("groupby.sort")
     count("groupby.sort.rows", table.capacity)
@@ -100,10 +107,26 @@ def _groupby_impl(table: Table, key_names, aggs, dropna: bool) -> Table:
         return _sort_groupby(table, key_names, key_cols, aggs, dropna)
 
 
+def _sort_bytes(table: Table, key_cols, aggs) -> int:
+    """Bytes of the sort path's own per-row buffers for an input the dense
+    plan takes (no key nullable under dropna=False): its packed key words
+    (with the dropped-row flag where there are null keys or dead rows) and
+    their sorted copy, the int64 permutation, and each aggregated column
+    (and its validity) sorted and scanned."""
+    drop = (table.num_rows is not None
+            or any(c.valid is not None for c in key_cols))
+    bits = sum(radix_width(c.data.dtype) for c in key_cols) + drop
+    per_row = 2 * 8 * -(-bits // 64) + 8
+    for name in {spec[0] for spec in aggs}:
+        col = table.column(name)
+        per_row += 2 * (col.data.element_size() + (col.valid is not None))
+    return table.capacity * per_row
+
+
 def _dense_plan(table: Table, key_cols, aggs, dropna: bool):
-    """The dense path's plan where the input allows it and the keys' live
-    values span at most dense.MAX_SLOTS slots, else None. A dense-eligible
-    input costs one probe and one host read, in either path."""
+    """The plan of the dense or the wide path where the input allows it,
+    else None. An input that `dense.request` takes costs one probe and one
+    host read, whichever path it takes."""
     names = {spec[0] for spec in aggs}
     plan = dense.request(
         [(c.data, c.valid) for c in key_cols],
@@ -114,11 +137,12 @@ def _dense_plan(table: Table, key_cols, aggs, dropna: bool):
     bounds = dense.domain_probe(plan.keys, plan.row_ok, plan.num_rows)
     with host_sync("groupby.domain"):      # the group-by's one host read
         bounds = bounds.tolist()
-    return plan.over(bounds)
+    return plan.over(bounds, _sort_bytes(table, key_cols, aggs))
 
 
 def _dense_groupby(plan, key_names, key_cols, aggs) -> Table:
-    outs, oks, live, groups = dense.dense_groupby(plan)
+    run = dense.wide_groupby if plan.wide else dense.dense_groupby
+    outs, oks, live, groups = run(plan)
     cols = [Column(data=d, valid=None if c.valid is None else live,
                    info=c.info, name=name)
             for name, c, d in zip(key_names, key_cols, outs)]

@@ -16,11 +16,13 @@ several threads launch at once.
   H6 hash_build,  hash.py     <- none: an inner join on one key of a unique
      hash_probe                  build side through a hash table, without a
                                  sort
+  H7 wide_groupby dense.py    <- none: a group-by over a wide integer key
+                                 domain without a sort, through slot arrays
 """
 from ._lib import COUNT_LOCK, build, count_launch, reset_counts
 from .compact import compact, compact_plain
 from .dense import (dense_groupby, dense_groupby_plain, domain_probe,
-                    domain_probe_plain)
+                    domain_probe_plain, wide_groupby)
 from .expand import SENTINEL, expand_fill, expand_fill_plain
 from .hash import (HashTable, SortedTable, hash_build, hash_build_plain,
                    hash_probe, hash_probe_plain)
@@ -29,7 +31,7 @@ from .scan import scan, scan_plain, seg_scan, seg_scan_plain
 WRAPPERS = {"compact": compact, "scan": scan, "seg_scan": seg_scan,
             "expand_fill": expand_fill, "domain_probe": domain_probe,
             "dense_groupby": dense_groupby, "hash_build": hash_build,
-            "hash_probe": hash_probe}
+            "hash_probe": hash_probe, "wide_groupby": wide_groupby}
 
 
 def launch_counts() -> dict:
@@ -54,5 +56,6 @@ __all__ = [
     "expand_fill_plain", "SENTINEL", "dense_groupby", "dense_groupby_plain",
     "domain_probe", "domain_probe_plain", "HashTable", "SortedTable",
     "hash_build", "hash_build_plain", "hash_probe", "hash_probe_plain",
+    "wide_groupby",
     "WRAPPERS", "launch_counts", "reset_launch_counts",
 ]

@@ -6,7 +6,7 @@ its sources and the signatures of its C entry points. It is built at its
 first launch, one compiler process per source, all started together, then
 one link, keyed by a hash of its sources and flags, into `build/kernels/`
 at the root of the checkout, and loaded once per process. `KERNELS` is the
-operators' library (H1-H6): `lib()`, `build()`, `library_path()` and
+operators' library (H1-H7): `lib()`, `build()`, `library_path()` and
 `check()` are its. The cost probes build their own (`probes/_common.py`).
 Nothing here runs at import time, so the package imports on a machine
 without CUDA.
@@ -150,6 +150,8 @@ KERNELS = Library("kernels", (
     "gdf_domain_probe": (_I, [_P, _P, _P, _I64, _P]),
     "gdf_dense_groupby_scratch_bytes": (_I64, [_I, _I, _I64, _PI]),
     "gdf_dense_groupby": (_I, [_I, _P, _P, _I64, _P]),
+    "gdf_wide_groupby_scratch_bytes": (_I64, [_I64, _I, _PI]),
+    "gdf_wide_groupby": (_I, [_I64, _P, _P, _I64, _P]),
     "gdf_hash_slots": (_I64, [_I64]),
     "gdf_hash_staged": (_I, [_I64]),
     "gdf_hash_table_bytes": (_I64, [_I, _I64]),

@@ -1,5 +1,6 @@
 """H5 `dense_groupby` and its `domain_probe`: a group-by over a small
-integer key domain in one pass, without a sort.
+integer key domain in one pass, without a sort; H7 `wide_groupby`: the
+same over a wide domain, through slot arrays in device memory.
 
 Wrappers around `csrc/dense_groupby.cu` (which says what bounds them and
 what their design does about it; they replace no TPU kernel), each beside
@@ -11,7 +12,8 @@ on CUDA tensors it launches the kernel or raises.
       the input needs a sort: a key that is no integer column, or is
       nullable under dropna=False; an op other than sum, count and avg, or
       a sum or avg of a column that is no number; more accumulators or
-      outputs than H5 holds. `Plan.over(bounds)` gives it the domain.
+      outputs than H5 holds. `Plan.over(bounds, sort_bytes)` gives it the
+      domain, or None where neither H5 nor H7 takes it.
   domain_probe(keys, row_ok, num_rows)
       int64 [K, 2]: each key's (min, max) over the rows below `num_rows`
       whose keys are all valid (`row_ok`); min > max where no row is. One
@@ -26,13 +28,21 @@ on CUDA tensors it launches the kernel or raises.
       for the G groups), the validity of a nullable column's aggregates
       (its count > 0) and G as a 0-d int32 tensor. One zeroing of `live`
       (and of each validity array), one memset of a ticket, one launch.
+  wide_groupby(plan)
+      the same for a `Plan` of D > 8 slots (`Plan.wide`): slot arrays of
+      D x `Plan.slot_bytes` bytes, set, added into by runs of adjacent rows
+      of one slot, and compacted in slot order. One zeroing of `live` (and
+      of each validity array), one memset of the look-back's descriptors,
+      three launches.
 
 A float sum reads a denormal as zero (in its own dtype, before a float32
 widens); integer sums wrap. An average is the sum over max(count, 1) in
 float64, from the float64 sum as it stands, or (`exact`) from the sum as a
 column of its dtype holds it, flushed: the sort path's deferred average.
-The kernel adds in a fixed order, so its sums are the same from run to
-run; the plain version adds in row order.
+H5 adds in a fixed order, so its sums are the same from run to run; H7's
+are where each group's rows are adjacent and fewer than a warp's chunk
+(each group then reaches its slot from at most two warps, and two addends
+commute); the plain version adds in row order.
 """
 from __future__ import annotations
 
@@ -104,18 +114,34 @@ class Plan:
     def slots(self) -> int:
         return math.prod(self.span)
 
+    @property
+    def wide(self) -> bool:
+        """Whether the domain is H7's (more than H5's MAX_SLOTS slots)."""
+        return self.slots > MAX_SLOTS
+
+    @property
+    def slot_bytes(self) -> int:
+        """Bytes of one of H7's slots: the rows (int32) and each further
+        accumulator (8 bytes)."""
+        return 4 + 8 * (len(self.accs) - 1)
+
     def out_dtype(self, o: Out) -> torch.dtype:
         return {COUNT: torch.int64, AVG: torch.float64}.get(o.kind, o.dtype)
 
-    def over(self, bounds):
+    def over(self, bounds, sort_bytes: int):
         """This plan over the domain of `bounds`, each key's (min, max) as
-        `domain_probe` gives them, or None where the domain holds no row
-        or more than MAX_SLOTS slots."""
+        `domain_probe` gives them, or None where the domain holds no row,
+        or is wider than MAX_SLOTS slots and H7's slot arrays would take
+        more bytes than `sort_bytes`, the sort path's own buffers for this
+        input."""
         lo = tuple(b[0] for b in bounds)
         span = tuple(b[1] - b[0] + 1 for b in bounds)
-        if min(span) < 1 or math.prod(span) > MAX_SLOTS:
+        if min(span) < 1:
             return None
-        return replace(self, lo=lo, span=span)
+        plan = replace(self, lo=lo, span=span)
+        if plan.wide and plan.slots * plan.slot_bytes > sort_bytes:
+            return None
+        return plan
 
 
 OPS = ("sum", "count", "avg")
@@ -343,25 +369,27 @@ def domain_probe(keys, row_ok=None, num_rows=None) -> torch.Tensor:
 domain_probe.launches = 0
 
 
-def dense_groupby(plan: Plan):
-    """Returns (outputs, validity arrays (None where the output is not
-    nullable), live, group count) as the module says."""
-    if (len(plan.span) != len(plan.keys) or min(plan.span) < 1
-            or plan.slots > MAX_SLOTS):
-        raise ValueError(f"dense_groupby: 1 to {MAX_SLOTS} slots")
+def _check_plan(what, plan: Plan):
+    """The plan's CUDA device, or None where every tensor is on the CPU."""
+    if len(plan.span) != len(plan.keys) or min(plan.span) < 1:
+        raise ValueError(f"{what}: a span of 1 or more a key")
     if not 1 <= len(plan.accs) <= MAX_ACCS or plan.accs[0].kind != ROWS:
-        raise ValueError(f"dense_groupby: 1 to {MAX_ACCS} accumulators, "
+        raise ValueError(f"{what}: 1 to {MAX_ACCS} accumulators, "
                          "the rows first")
     if len(plan.outs) > MAX_OUTS:
-        raise ValueError(f"dense_groupby: at most {MAX_OUTS} outputs")
+        raise ValueError(f"{what}: at most {MAX_OUTS} outputs")
     more = [t for a in plan.accs for t in (a.values, a.valid)
             if t is not None]
-    dev = _tensors("dense_groupby", list(plan.keys), plan.row_ok,
-                   plan.num_rows, more)
-    if dev is None:
-        return dense_groupby_plain(plan)
+    return _tensors(what, list(plan.keys), plan.row_ok, plan.num_rows, more)
+
+
+def _launch(what, plan: Plan, dev, scratch_args):
+    """Outputs as the module says, from the library's `gdf_<what>` over the
+    plan's C form (its keys of span >= 2 only: the others are constants)
+    and the scratch that `gdf_<what>_scratch_bytes(*scratch_args)` asks
+    for."""
     n = plan.capacity
-    read = [j for j, s in enumerate(plan.span) if s > 1]  # others: constants
+    read = [j for j, s in enumerate(plan.span) if s > 1]
     c = _c_plan(n, [plan.keys[j] for j in read], plan.row_ok, plan.num_rows)
     for i, j in enumerate(read):
         c.key_lo[i], c.key_span[i] = plan.lo[j], plan.span[j]
@@ -396,13 +424,41 @@ def dense_groupby(plan: Plan):
     c.live, c.groups = live.data_ptr(), groups.data_ptr()
     lib = _lib.lib()
     with torch.cuda.device(dev):
-        scratch = _scratch(lib, lib.gdf_dense_groupby_scratch_bytes, dev,
-                           plan.slots, len(plan.accs), n)
-        _lib.check(lib.gdf_dense_groupby(
+        scratch = _scratch(lib, getattr(lib, f"gdf_{what}_scratch_bytes"),
+                           dev, *scratch_args)
+        _lib.check(getattr(lib, f"gdf_{what}")(
             plan.slots, ctypes.addressof(c), scratch.data_ptr(),
-            scratch.shape[0], _lib.stream_ptr(dev)), "dense_groupby")
-    _lib.count_launch(dense_groupby)
+            scratch.shape[0], _lib.stream_ptr(dev)), what)
     return outs, oks, live, groups
 
 
+def dense_groupby(plan: Plan):
+    """Returns (outputs, validity arrays (None where the output is not
+    nullable), live, group count) as the module says."""
+    dev = _check_plan("dense_groupby", plan)
+    if plan.wide:
+        raise ValueError(f"dense_groupby: 1 to {MAX_SLOTS} slots")
+    if dev is None:
+        return dense_groupby_plain(plan)
+    got = _launch("dense_groupby", plan, dev,
+                  (plan.slots, len(plan.accs), plan.capacity))
+    _lib.count_launch(dense_groupby)
+    return got
+
+
 dense_groupby.launches = 0
+
+
+def wide_groupby(plan: Plan):
+    """`dense_groupby` of a plan over more than MAX_SLOTS slots (H7)."""
+    dev = _check_plan("wide_groupby", plan)
+    if not plan.wide:
+        raise ValueError(f"wide_groupby: more than {MAX_SLOTS} slots")
+    if dev is None:
+        return dense_groupby_plain(plan)
+    got = _launch("wide_groupby", plan, dev, (plan.slots, len(plan.accs)))
+    _lib.count_launch(wide_groupby)
+    return got
+
+
+wide_groupby.launches = 0

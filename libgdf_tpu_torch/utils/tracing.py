@@ -16,8 +16,8 @@ per-operator colors, src/nvtx_utils.h:17-66).
 - `host_sync(site)` wraps each place where the host waits on the device
   (a value read to the host, an implicit sync): it counts the read, always,
   and spans it `libgdf.sync.<site>`. `count(event, n)` counts the path an
-  operator took (the group-by's `groupby.dense` / `groupby.sort`) and the
-  rows it took it with (`groupby.sort.rows`).
+  operator took (the group-by's `groupby.dense` / `groupby.wide` /
+  `groupby.sort`) and the rows it took it with (`groupby.sort.rows`).
   `counters()` reads the counts.
 - The ABI's ranges (`range_push` / `range_pop`) are a
   `torch.profiler.record_function` each, and an NVTX range where CUDA is
@@ -86,9 +86,9 @@ def host_sync(site: str):
 
 def count(event: str, n: int = 1) -> None:
     """Add `n` to the count of `event`: a path an operator took
-    (`groupby.dense`, `groupby.sort`, one each) or the rows it took them
-    with (`groupby.sort.rows`, the input's capacity), under the lock of
-    the host-sync counts."""
+    (`groupby.dense`, `groupby.wide`, `groupby.sort`, one each) or the
+    rows it took them with (`groupby.sort.rows`, the input's capacity),
+    under the lock of the host-sync counts."""
     with _sync_lock:
         _events[event] += n
 

@@ -1783,6 +1783,8 @@ def test_dense_groupby_matches_the_sort_path(dev, case):
     got = G._groupby_impl(t, keys, aggs, True)
     dense_wanted = case not in ("over_the_cap", "no_live_row")
     assert tracing.counters().get("groupby.dense", 0) == int(dense_wanted)
+    assert tracing.counters().get("groupby.wide", 0) == int(
+        case == "over_the_cap")
     want = G._sort_groupby(t, keys, [t.column(k) for k in keys], aggs, True)
     g = int(want.num_rows)
     assert int(got.num_rows) == g and got.capacity == want.capacity
@@ -1800,9 +1802,9 @@ def test_dense_groupby_matches_the_sort_path(dev, case):
 
 
 def test_dense_groupby_host_waits_are_its_counted_read(dev):
-    """torch's sync debug mode: the dense path waits once (the domain read)
-    and a probed input that takes the sort path once; an input the probe
-    never sees (a min) not at all."""
+    """torch's sync debug mode: the dense and the wide path wait once (the
+    domain read) and a probed input that takes the sort path once; an
+    input the probe never sees (a min) not at all."""
     import warnings
     from libgdf_tpu_torch import ops
     from libgdf_tpu_torch.utils import tracing
@@ -1811,9 +1813,13 @@ def test_dense_groupby_host_waits_are_its_counted_read(dev):
     wide = small.replace_column("l_returnflag", Column.from_array(
         torch.arange(100_003, device=dev).to(torch.int32),
         name="l_returnflag"))
+    spread = small.replace_column("l_returnflag", Column.from_array(
+        torch.arange(100_003, device=dev).to(torch.int32) * 64,
+        name="l_returnflag"))
     cases = [(small, [("l_quantity", "sum", "s")], 1, "groupby.dense"),
              (small, [("l_quantity", "min", "m")], 0, "groupby.sort"),
-             (wide, [("l_quantity", "sum", "s")], 1, "groupby.sort")]
+             (wide, [("l_quantity", "sum", "s")], 1, "groupby.wide"),
+             (spread, [("l_quantity", "sum", "s")], 1, "groupby.sort")]
     for t, aggs, waits, path in cases:
         torch.cuda.synchronize()
         tracing.reset_counters()
@@ -1829,6 +1835,94 @@ def test_dense_groupby_host_waits_are_its_counted_read(dev):
         c = tracing.counters()
         assert len(syncs) == c["host_sync"] == waits, (path, syncs, c)
         assert c[path] == 1
+
+
+# ---------------------------------------------------------------------------
+# H7 wide_groupby
+# ---------------------------------------------------------------------------
+
+def _q18_table(dev, seed, orders=15_000_000, shuffle=False):
+    """Q18's subquery input at SF 10: l_orderkey as TPC-H makes order keys
+    (the first 8 of every 32: 1 to 59,999,976), 1 to 7 lines an order,
+    adjacent (or shuffled), l_quantity 1 to 50 as float64."""
+    from libgdf_tpu_torch import Table
+    g = torch.Generator(device=dev).manual_seed(seed)
+    o = torch.arange(orders, device=dev)
+    okey = ((o // 8) * 32 + o % 8 + 1).to(torch.int32)
+    key = torch.repeat_interleave(okey, torch.randint(
+        1, 8, (orders,), generator=g, device=dev))
+    qty = torch.randint(1, 51, (key.shape[0],), generator=g,
+                        device=dev).double()
+    if shuffle:
+        perm = torch.randperm(key.shape[0], generator=g, device=dev)
+        key, qty = key[perm], qty[perm]
+    return Table.from_dict({"l_orderkey": key, "l_quantity": qty})
+
+
+def _q18_plan(t):
+    G = _groupby_module()
+    plan = G._dense_plan(t, [t.column("l_orderkey")],
+                         [("l_quantity", "sum", "sum_qty")], True)
+    assert plan is not None and plan.wide
+    return plan
+
+
+@pytest.mark.parametrize("shuffle", [False, True],
+                         ids=["clustered", "shuffled"])
+def test_wide_groupby_matches_plain_at_q18_scale(dev, shuffle):
+    """H7 against its plain version at Q18's shape: ~60M rows into ~15M
+    groups of a ~6.0e7-slot domain. Integer quantities sum exactly in any
+    order, so every output is exact."""
+    plan = _q18_plan(_q18_table(dev, 11, shuffle=shuffle))
+    assert 59_000_000 < plan.slots < 60_000_000
+    got = kernels.wide_groupby(plan)
+    assert int(got[3]) == 15_000_000
+    _same_dense(got, kernels.dense_groupby_plain(plan), plan, exact=True)
+
+
+def test_wide_groupby_is_bit_identical_run_to_run(dev):
+    """Clustered input, float sums of values that do not add exactly: each
+    group reaches its slot from at most two warps, so the sums repeat."""
+    from libgdf_tpu_torch import Column
+    t = _q18_table(dev, 12)
+    g = torch.Generator(device=dev).manual_seed(13)
+    t = t.replace_column("l_quantity", Column.from_array(
+        torch.rand(t.capacity, generator=g, device=dev, dtype=torch.float64),
+        name="l_quantity"))
+    plan = _q18_plan(t)
+    first = kernels.wide_groupby(plan)
+    _same_dense(first, kernels.dense_groupby_plain(plan), plan, exact=False)
+    for _ in range(3):
+        _same_dense(kernels.wide_groupby(plan), first, plan, exact=True)
+
+
+def test_wide_groupby_launches_no_sort(dev):
+    """Q18's subquery group-by is one probe and one H7 call, and none of
+    the sort path's kernels: no sort on the card at all; its host waits on
+    the probe's read alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from libgdf_tpu_torch import ops
+    from libgdf_tpu_torch.utils import tracing
+    t = _q18_table(dev, 14, orders=1_000_003)
+    kernels.reset_launch_counts()
+    tracing.reset_counters()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            ops.groupby(t, ["l_orderkey"],
+                        [("l_quantity", "sum", "sum_qty")])
+            counts = kernels.launch_counts()
+            assert counts["wide_groupby"] == counts["domain_probe"] == i + 1
+            assert counts["seg_scan"] == counts["compact"] == 0
+            assert counts["dense_groupby"] == 0
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    assert any("wide_add" in k for k in names), names
+    assert not [k for k in names if "sort" in k.lower()], names
+    got = tracing.counters()
+    assert got["groupby.wide"] == got["host_sync"] == 3
+    assert "groupby.sort" not in got
 
 
 # ---------------------------------------------------------------------------

@@ -391,8 +391,8 @@ def test_argsort_keys(rng, nkeys):
 
 
 def _dense_case(rng, case):
-    """(columns, nulls, keys, aggs, dropna, num_rows, path) of one dense
-    group-by case; dead rows past num_rows hold keys outside the domain."""
+    """(columns, nulls, keys, aggs, num_rows, path) of one dense group-by
+    case; dead rows past num_rows hold keys outside the domain."""
     n = N
     kdt = {"int16": np.int16, "int32": np.int32, "int64": np.int64,
            "date32": np.int32}.get(case, np.int8)
@@ -429,8 +429,9 @@ def _dense_case(rng, case):
         aggs = (("f64", "sum", "sd"), ("f64", "avg", "ad"),
                 ("f32", "count", "cf"), ("i8", "sum", "s8"),
                 ("i8", "avg", "a8"))
-    dense = case not in ("over_the_cap", "no_live_row")
-    return cols, nulls, keys, aggs, num_rows, dense
+    path = {"over_the_cap": "groupby.wide",
+            "no_live_row": "groupby.sort"}.get(case, "groupby.dense")
+    return cols, nulls, keys, aggs, num_rows, path
 
 
 DENSE_CASES = ["int8", "int16", "int32", "int64", "date32", "one_key",
@@ -443,27 +444,97 @@ DENSE_CASES = ["int8", "int16", "int32", "int64", "date32", "one_key",
 def test_groupby_dense_domain(rng, case):
     """The dense path (H5's plain version) against libgdf_tpu's sort: small
     integer key domains, dead rows with stale keys, nulls, denormals, a
-    wrapping int8 sum, averages alone and from siblings; over the cap and
-    with no live row, the sort path."""
+    wrapping int8 sum, averages alone and from siblings; over the cap, the
+    wide path, and with no live row, the sort path."""
     from dataclasses import replace
 
     import libgdf_tpu.core.dtypes as jdt
     import libgdf_tpu_torch.core.dtypes as tdt
-    from libgdf_tpu_torch.utils import tracing
-    cols, nulls, keys, aggs, num_rows, dense = _dense_case(rng, case)
+    cols, nulls, keys, aggs, num_rows, path = _dense_case(rng, case)
     jt, tt = make_tables(cols, nulls, num_rows=num_rows)
     if case == "date32":
         jt = jt.replace_column("k", replace(
             jt["k"], info=jdt.DtypeInfo(jdt.GDFDtype.DATE32)))
         tt = tt.replace_column("k", replace(
             tt["k"], info=tdt.DtypeInfo(tdt.GDFDtype.DATE32)))
+    _check_groupby_path(jt, tt, keys, aggs, path)
+
+
+def _check_groupby_path(jt, tt, keys, aggs, path):
+    """The group-by of tt takes `path` alone and matches libgdf_tpu's."""
+    from libgdf_tpu_torch.utils import tracing
     jg = jax_op("groupby", jt, key_names=keys, aggs=aggs, dropna=True)
     tracing.reset_counters()
     tg = tops.groupby(tt, list(keys), aggs)
     got = tracing.counters()
-    assert got.get("groupby.dense", 0) == int(dense)
-    assert got.get("groupby.sort", 0) == int(not dense)
+    for p in ("groupby.dense", "groupby.wide", "groupby.sort"):
+        assert got.get(p, 0) == int(p == path), (p, got)
     assert int(tg.num_rows) == int(jg.num_rows)
     tol = {"sd": F64_SUM, "ad": F64_SUM, "sf": F32_SUM, "af": F32_SUM,
            "ai": F64_SUM, "a8": F64_SUM}
     assert_tables_match(jg, tg, tol)
+
+
+# One int32 key, no null, no dead row, one float64 sum over N rows: the
+# sort path's buffers take N x 40 bytes (a key word and its sorted copy,
+# the permutation, the column sorted and scanned), H7's slots 12 bytes
+# each, so the widest domain H7 takes is N * 40 // 12 slots.
+RULE_SLOTS = N * 40 // 12
+
+
+def _wide_case(rng, case):
+    """(columns, nulls, keys, aggs, num_rows, path) of one group-by over a
+    wide integer domain: the domain's ends are both live, dead rows past
+    num_rows hold keys far outside it."""
+    n = N
+    kdt, lo, span = {"int8": (np.int8, -128, 256),
+                     "int64_offset": (np.int64, 2 ** 40 + 3, 300),
+                     "nine_slots": (np.int32, 0, 9),
+                     "two_keys": (np.int16, -20, 40),
+                     "at_the_rule": (np.int32, 7, RULE_SLOTS),
+                     "past_the_rule": (np.int32, 7, RULE_SLOTS + 1),
+                     }.get(case, (np.int32, 10 ** 9, 200))
+    k = lo + rng.integers(0, span, n)
+    k[:2] = lo, lo + span - 1
+    cols = {"k": k.astype(kdt),
+            "k2": rng.integers(-3, 4, n).astype(np.int8),
+            "f32": rng.standard_normal(n).astype(np.float32),
+            "f64": rng.standard_normal(n),
+            "i8": rng.integers(-128, 128, n).astype(np.int8),
+            "i32": rng.integers(-1000, 1000, n).astype(np.int32)}
+    keys = ("k", "k2") if case == "two_keys" else ("k",)
+    nulls, num_rows = {}, None
+    if case == "null_keys":
+        nulls = {"k": rng.random(n) < 0.1}
+        nulls["k"][:2] = False
+    if case == "dead_rows":
+        num_rows = 450
+        cols["k"][num_rows:] = 2 ** 30
+    aggs = (("f64", "sum", "sd"), ("f32", "sum", "sf"), ("i8", "sum", "s8"),
+            ("f64", "avg", "ad"), ("f32", "count", "cf"),
+            ("f32", "avg", "af"), ("i32", "avg", "ai"), ("k", "count", "n"))
+    if case == "avg_from_siblings":
+        aggs = (("f64", "sum", "sd"), ("f64", "count", "cd"),
+                ("f64", "avg", "ad"), ("i8", "sum", "s8"),
+                ("i8", "count", "c8"), ("i8", "avg", "a8"))
+    if case in ("at_the_rule", "past_the_rule"):
+        aggs = (("f64", "sum", "sd"),)
+    path = "groupby.sort" if case == "past_the_rule" else "groupby.wide"
+    return cols, nulls, keys, aggs, num_rows, path
+
+
+WIDE_CASES = ["one_key", "two_keys", "int8", "int64_offset", "nine_slots",
+              "null_keys", "dead_rows", "avg_from_siblings", "at_the_rule",
+              "past_the_rule"]
+
+
+@pytest.mark.parametrize("case", WIDE_CASES)
+def test_groupby_wide_domain(rng, case):
+    """The wide path (H7's plain version) against libgdf_tpu's sort: one
+    key and two (mixed radix), int8 / int32 / int64 keys, a large offset,
+    null keys dropped, dead rows, averages alone and from siblings, the
+    narrowest wide domain (9 slots) and the widest the byte rule takes;
+    one slot wider, the sort path."""
+    cols, nulls, keys, aggs, num_rows, path = _wide_case(rng, case)
+    jt, tt = make_tables(cols, nulls, num_rows=num_rows)
+    _check_groupby_path(jt, tt, keys, aggs, path)

@@ -258,7 +258,7 @@ def test_counter_is_exact_across_threads():
         "host_sync": n, "host_sync.join.hash.count": n, "join.hash": n}
 
 
-# -- the group-by's two paths ---------------------------------------------------
+# -- the group-by's three paths ------------------------------------------------
 
 def run_query(name: str) -> dict:
     """One query of a benchmark cell's plan (gdfbench/queries) on a small
@@ -277,17 +277,20 @@ def run_query(name: str) -> dict:
     return tracing.counters()
 
 
-@pytest.mark.parametrize("name,path,syncs", [
-    ("tpch_sf10.q1", "groupby.dense", 2),
-    ("tpch_sf10.q3", "groupby.sort", 9)])
-def test_benchmark_plans_take_their_groupby_path(name, path, syncs):
+@pytest.mark.parametrize("name,paths,syncs", [
+    ("tpch_sf10.q1", {"groupby.dense": 1}, 2),
+    ("tpch_sf10.q3", {"groupby.sort": 1}, 9),
+    ("tpch_sf10_q18.q18", {"groupby.wide": 1, "groupby.sort": 1}, 10)])
+def test_benchmark_plans_take_their_groupby_path(name, paths, syncs):
     """Q1's keys (two int8 codes, 6 slots) take the dense path, Q3's
-    (order keys, dates) the sort path; either group-by waits once, on the
-    probe's read, and the plans keep their host waits (2, and 9 since
-    Q3's joins take the hash path)."""
+    (order keys, dates) the sort path, Q18's subquery (order keys, about
+    one slot a line item) the wide path and its outer group-by (a float64
+    key among its four) the sort path; the probed group-by waits once, on
+    the probe's read, and the plans keep their host waits (2, 9 since Q3's
+    joins take the hash path, and 10)."""
     got = run_query(name)
-    other = "groupby.sort" if path == "groupby.dense" else "groupby.dense"
-    assert got[path] == 1 and other not in got
+    for path in ("groupby.dense", "groupby.wide", "groupby.sort"):
+        assert got.get(path, 0) == paths.get(path, 0), (path, got)
     assert got["host_sync.groupby.domain"] == 1
     assert "host_sync.groupby.new_group" not in got
     assert got["host_sync"] == syncs
@@ -306,14 +309,17 @@ def test_benchmark_joins_take_the_hash_path(name, joins, syncs):
     assert got["host_sync"] == syncs
 
 
-def _key_table(float_key=False, null_key=False):
+def _key_table(float_key=False, null_key=False, wide=False):
     k = np.array([3, 1, 2, 3, 2, 1], np.float32 if float_key else np.int32)
+    if wide:
+        k *= 5          # 11 slots: 132 bytes of H7's, 240 of the sort's
     nulls = {"k": np.array([0, 0, 1, 0, 0, 0], bool)} if null_key else None
     return from_numpy({"k": k, "v": np.arange(6, dtype=np.float64)}, nulls,
                       device="cpu")
 
 
 PATH_SPANS = {"groupby.dense": ["libgdf.groupby.dense"],
+              "groupby.wide": ["libgdf.groupby.wide"],
               "groupby.sort": ["libgdf.groupby.sort",
                                "libgdf.groupby.sort.extract",
                                "libgdf.groupby.sort.scan"]}
@@ -329,12 +335,14 @@ PATH_SPANS = {"groupby.dense": ["libgdf.groupby.dense"],
      "groupby.sort", 0),
     (_key_table, [("v", "min")], True, "groupby.sort", 0),
     (_key_table, [("v", "sum"), ("v", "max")], True, "groupby.sort", 0),
+    (lambda: _key_table(wide=True), [("v", "sum"), ("v", "avg")], True,
+     "groupby.wide", 1),
 ], ids=["dense", "null_key_dropped", "null_key_kept", "float_key", "min",
-        "sum_and_max"])
+        "sum_and_max", "wide"])
 def test_groupby_path_follows_the_input(table, aggs, dropna, path, syncs):
     """A key nullable under dropna=False, a float key and a min / max force
-    the sort path without a probe (no host wait); the dense path reads the
-    probe once. Both give the same groups."""
+    the sort path without a probe (no host wait); the dense and the wide
+    path read the probe once. All give the same groups."""
     t = table()
     tracing.reset_counters()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
