@@ -20,6 +20,21 @@ from .column import Column, as_tensor, column_concat
 from .errors import GDFStatus, require
 from ..utils.tracing import host_sync, spanned
 
+_BLOCK = 4096                         # rows a block of the live mask
+
+
+def live_rows(n: int, num_rows, device) -> torch.Tensor:
+    """bool[n]: True for the rows below `num_rows` (a 0-d tensor on
+    `device` or an int; None: every row), with no host read. One broadcast
+    compare of a block's lanes against each block's rows left writes the
+    mask once; an iota of n rows compared with the count would be a slow
+    pass of its own (torch's index kernel)."""
+    if num_rows is None:
+        return torch.ones(n, dtype=torch.bool, device=device)
+    lane = torch.arange(_BLOCK, device=device)
+    start = torch.arange(0, n, _BLOCK, device=device)
+    return (lane < (num_rows - start)[:, None]).reshape(-1)[:n]
+
 
 def _count_tensor(num_rows, device) -> Optional[torch.Tensor]:
     if num_rows is None:
@@ -143,11 +158,7 @@ class Table:
 
     def live_mask(self) -> torch.Tensor:
         """bool[capacity]: True for rows < num_rows."""
-        iota = torch.arange(self.capacity, dtype=torch.int32,
-                            device=self.device)
-        if self.num_rows is None:
-            return torch.ones_like(iota, dtype=torch.bool)
-        return iota < self.num_rows
+        return live_rows(self.capacity, self.num_rows, self.device)
 
     def row_validity(self) -> torch.Tensor:
         """Row is valid iff valid in EVERY column (and live).

@@ -39,7 +39,7 @@ from ..core.bitmask import mask_or
 from ..core.bits import flush_float_keys
 from ..core.column import Column
 from ..core.errors import GDFStatus, require
-from ..core.table import Table
+from ..core.table import Table, live_rows
 from ..utils.tracing import count, host_sync, span, spanned
 from . import engine
 from .compaction import compact_arrays
@@ -244,7 +244,7 @@ def _sort_join(left, right, left_on, right_on, how, out_capacity,
         left_idx, right_idx = _general_path(
             how, n, m, cap, emit, offsets, s_back, run_lower, flag_bits,
             bkeys, b_nomatch)
-    slot_live = torch.arange(cap, dtype=torch.int64, device=dev) < total
+    slot_live = live_rows(cap, total, dev)
     left_idx = torch.where(slot_live, left_idx, -1)
     right_idx = torch.where(slot_live, right_idx, -1)
     return left_idx, right_idx, total

@@ -53,6 +53,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from ...core.bits import flush_denormals
+from ...core.table import live_rows
 from . import _lib
 from ._lib import DTYPE_CODES
 
@@ -200,9 +201,7 @@ def request(keys, columns, aggs, dropna: bool, num_rows=None):
 # -- plain versions -------------------------------------------------------------
 
 def _live(n, num_rows, row_ok, device):
-    ok = torch.ones(n, dtype=torch.bool, device=device)
-    if num_rows is not None:
-        ok = torch.arange(n, device=device) < num_rows
+    ok = live_rows(n, num_rows, device)
     return ok if row_ok is None else ok & row_ok
 
 

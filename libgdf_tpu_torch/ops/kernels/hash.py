@@ -33,6 +33,7 @@ from dataclasses import dataclass
 import torch
 
 from ...core.bits import flush_float_keys
+from ...core.table import live_rows
 from . import _lib
 
 KEY_DTYPES = _lib.DTYPE_CODES
@@ -86,9 +87,7 @@ def _canonical_keys(keys, valid=None, num_rows=None):
     """(int64 keys as the kernels compare them, matchable bool mask): the
     live rows whose key is valid and no NaN."""
     n = keys.shape[0]
-    ok = torch.ones(n, dtype=torch.bool, device=keys.device)
-    if num_rows is not None:
-        ok = torch.arange(n, device=keys.device) < num_rows
+    ok = live_rows(n, num_rows, keys.device)
     if valid is not None:
         ok = ok & valid
     if keys.is_floating_point():

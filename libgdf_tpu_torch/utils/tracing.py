@@ -17,8 +17,8 @@ per-operator colors, src/nvtx_utils.h:17-66).
   (a value read to the host, an implicit sync): it counts the read, always,
   and spans it `libgdf.sync.<site>`. `count(event, n)` counts the path an
   operator took (the group-by's `groupby.dense` / `groupby.wide` /
-  `groupby.sort`) and the rows it took it with (`groupby.sort.rows`).
-  `counters()` reads the counts.
+  `groupby.sort`), a call (`reduce`) and the rows it took them with
+  (`groupby.sort.rows`, `reduce.rows`). `counters()` reads the counts.
 - The ABI's ranges (`range_push` / `range_pop`) are a
   `torch.profiler.record_function` each, and an NVTX range where CUDA is
   available, for tools that read NVTX. Colors are kept as labels.
@@ -86,9 +86,10 @@ def host_sync(site: str):
 
 def count(event: str, n: int = 1) -> None:
     """Add `n` to the count of `event`: a path an operator took
-    (`groupby.dense`, `groupby.wide`, `groupby.sort`, one each) or the
-    rows it took them with (`groupby.sort.rows`, the input's capacity),
-    under the lock of the host-sync counts."""
+    (`groupby.dense`, `groupby.wide`, `groupby.sort`, one each), a call
+    (`reduce`) or the rows it took them with (`groupby.sort.rows`,
+    `reduce.rows`: the input's capacity), under the lock of the host-sync
+    counts."""
     with _sync_lock:
         _events[event] += n
 

@@ -501,6 +501,33 @@ def test_quantiles_and_reductions_gpu_match_cpu(dev, n):
                                atol=1e-5 * float(c["v"].data.abs().sum()))
 
 
+@pytest.mark.parametrize("live", [0, 1, 2049, 100_003])
+def test_reductions_over_live_rows_gpu_match_cpu(dev, live):
+    """A device count: the dead rows past it (NaN, +-inf, 1e300) leave
+    every op as on the CPU, and no host wait is counted."""
+    from libgdf_tpu_torch import Column, ops
+    from libgdf_tpu_torch.utils import tracing
+    n = 100_003
+    x = torch.as_tensor(np.random.default_rng(live).standard_normal(n))
+    x[live:] = torch.tensor([np.nan, np.inf, -np.inf, 1e300]).repeat(
+        n)[:n - live]
+    cols = {d: Column.from_array(x.to(d)) for d in ("cuda", "cpu")}
+    counts = {d: torch.tensor(live, dtype=torch.int32, device=d)
+              for d in ("cuda", "cpu")}
+    tracing.reset_counters()
+    got = {op: ops.reduce(cols["cuda"], op, num_rows=counts["cuda"])
+           for op in ("sum", "min", "max", "sum_squared")}
+    assert tracing.counters()["host_sync"] == 0
+    for op, g in got.items():
+        want = ops.reduce(cols["cpu"], op, num_rows=counts["cpu"])
+        assert g.device.type == "cuda"
+        if op in ("min", "max"):
+            assert float(g) == float(want)
+        else:
+            torch.testing.assert_close(g.cpu(), want, rtol=1e-12,
+                                       atol=1e-12 * n)
+
+
 # -- the flat gdf_* ABI on the card, against the same calls on CPU tensors ---
 
 def _abi_same(g, c, rtol=None):

@@ -124,6 +124,8 @@ def test_join_fallback_spans_nest_under_a_profiler():
     ("libgdf.groupby.sort", "libgdf.sort"),
     ("libgdf.op.order_by", "libgdf.sort"),
     ("libgdf.op.gather", "aten::index"),
+    ("libgdf.op.reduce", "aten::sum"),
+    ("libgdf.op.reduce", "aten::where"),
 ])
 def test_operator_spans(outer, inner):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -131,6 +133,7 @@ def test_operator_spans(outer, inner):
         ops.compare_scalar(left["k"], 2, "le")
         run_plan()
         ops.groupby(left, ["k"], [("v", "min")])     # the sort path
+        ops.sum(left["v"], num_rows=torch.tensor(4, dtype=torch.int32))
     assert inside(events(prof), outer, inner)
 
 
@@ -177,7 +180,7 @@ JOIN_FALLBACK = {"join.hash.count": 1, "join.key_change": 1, "join.total": 1,
                  "join.unique_build": 1, "join.hash_fallback": 1,
                  "join.sort": 1}
 PATHS = ("groupby.dense", "groupby.sort", "join.hash", "join.sort",
-         "join.hash_fallback")               # counted events, not syncs
+         "join.hash_fallback", "reduce", "reduce.rows")  # events, not syncs
 
 
 @pytest.mark.parametrize("fn,want", [
@@ -210,11 +213,14 @@ PATHS = ("groupby.dense", "groupby.sort", "join.hash", "join.sort",
     (lambda: ops.window_function(tables()[0], "v", "sum", order_by=["v"],
                                  preceding=2.0, frame="range"),
      {"window.seg_start": 1, "window.preceding": 1}),
+    (lambda: ops.max(tables()[0]["v"], num_rows=torch.tensor(2)),
+     {"reduce": 1, "reduce.rows": 6}),
+    (lambda: ops.sum(tables()[0]["k"]), {"reduce": 1, "reduce.rows": 6}),
 ], ids=["join", "join_general_path", "join_compact", "groupby", "filter",
         "filter_to_numpy", "column_to_numpy", "expand_tensor_cap",
         "expand_int_cap", "partition_sizes", "apply_stencil", "cast",
         "table_count", "table_count_tensor", "count_valid", "window_rows",
-        "window_range"])
+        "window_range", "reduce_live", "reduce"])
 def test_counter_counts_each_read_once(fn, want):
     syncs = {k: v for k, v in want.items() if k not in PATHS}
     tracing.reset_counters()
@@ -294,6 +300,20 @@ def test_benchmark_plans_take_their_groupby_path(name, paths, syncs):
     assert got["host_sync.groupby.domain"] == 1
     assert "host_sync.groupby.new_group" not in got
     assert got["host_sync"] == syncs
+
+
+def test_q6_plan_sums_on_the_card_without_a_wait():
+    """Q6's plan filters, multiplies and sums the live rows by the
+    filter's device count: no host wait in the library, one reduction a
+    query over the filter's capacity (every line item), and no group-by
+    or join."""
+    from gdfbench.data import tpch
+    got = run_query("tpch_sf10.q6")
+    lines = tpch.generate(0.002, 7, 0, 1, "cpu")["lineitem"]["l_shipdate"]
+    assert got["host_sync"] == 0
+    assert got["reduce"] == 1
+    assert got["reduce.rows"] == lines.shape[0]
+    assert not {k for k in got if k.startswith(("groupby.", "join."))}
 
 
 @pytest.mark.parametrize("name,joins,syncs", [
