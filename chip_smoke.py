@@ -30,7 +30,12 @@ Run from the root of a checkout, on a machine with the card and nvcc:
    orders, ~6.0e7 slots), bit-identical over repeats there, and timed
    there and at two shapes no cell runs (those lines shuffled; 60M rows
    into 2^10 random slots) against the sort path, which it must not be
-   slower than. The
+   slower than. H8 (`elementwise_binary`, `elementwise_compare`) is held
+   bit for bit to its plain version at each operation Q6's and Q1's plans
+   send through it, at SF 10's 59,986,052 rows, and timed there beside
+   its plain version and the library's op alone; `--h8-first-calls` times
+   the first and second call of each such operation of the four cells in
+   a fresh process. The
    look-backs of H1, H2 and H3 are checked for races: H2's 10M ones scan
    to exactly 1..n (int32 and int64, forward and reverse); H3's 10M ones
    with no flag sum to exactly 1..n and with a flag every 100,003 rows to
@@ -253,6 +258,12 @@ SOURCES = {
     "wide_groupby": ("libgdf_tpu_torch/csrc/dense_groupby.cu",
                      "none: the group-by that libgdf_tpu/ops/groupby.py "
                      "sorts for, over a wide integer key domain"),
+    "elementwise_binary": ("libgdf_tpu_torch/csrc/elementwise.cu",
+                           "none: add / sub / mul of float columns, which "
+                           "XLA fuses, with the denormal flush in the load"),
+    "elementwise_compare": ("libgdf_tpu_torch/csrc/elementwise.cu",
+                            "none: a column against a scalar into the int8 "
+                            "stencil, with the denormal flush in the load"),
 }
 # the kernels the main path must launch (its group-by takes the sort path;
 # its join on a unique build side the hash path, the one on repeated keys
@@ -301,6 +312,8 @@ KERNEL_NAMES = {"compact": ("compact_lookback",),
                 "hash_build": ("hash_build",),
                 "hash_probe": ("hash_probe",),
                 "wide_groupby": ("wide_init", "wide_add", "wide_extract"),
+                "elementwise_binary": ("elementwise_binary",),
+                "elementwise_compare": ("elementwise_compare",),
                 "tile_sort": ("tile_sort_cluster",),
                 "lane_gather": ("lane_gather_rows",),
                 "sublane_gather": ("sublane_gather_persistent",),
@@ -383,6 +396,17 @@ def exact(got, want, what):
     if not bool(same.all()):
         bad = int((~same).sum())
         fail(f"{what}: {bad} of {got.numel()} elements differ")
+    return 0.0
+
+
+def exact_bits(got, want, what):
+    """`exact`, and the sign of every zero as well."""
+    exact(got, want, what)
+    if got.is_floating_point():
+        keep = ~torch.isnan(want)
+        if not torch.equal(torch.signbit(got[keep]),
+                           torch.signbit(want[keep])):
+            fail(f"{what}: the sign of a zero differs")
     return 0.0
 
 
@@ -1241,6 +1265,144 @@ def phase_hash(rng, dev):
                       f"bound_ms={st['bound_ms']:.4f} ({desc})", flush=True)
         del bk, pk, table
     return stats
+
+
+# -- H8 elementwise -----------------------------------------------------------
+
+# TPC-H SF 10's line items (a ragged tail past every 16-row step), and each
+# operation that Q6's and Q1's plans send through H8 at that shape (Q1's
+# expressions run over the filter's capacity, the whole table):
+# (what, wrapper, op, columns, scalar)
+N_LINES = 59_986_052
+H8_CALLS = (
+    ("q6 l_shipdate ge", "elementwise_compare", "ge", ("ship",), 8766),
+    ("q6 l_shipdate lt", "elementwise_compare", "lt", ("ship",), 9131),
+    ("q6 l_discount ge", "elementwise_compare", "ge", ("disc",), 0.05),
+    ("q6 l_discount le", "elementwise_compare", "le", ("disc",), 0.07),
+    ("q6 l_quantity lt", "elementwise_compare", "lt", ("qty",), 24),
+    ("q6 price * discount", "elementwise_binary", "mul",
+     ("price", "disc"), None),
+    ("q1 l_shipdate le", "elementwise_compare", "le", ("ship",), 10471),
+    ("q1 1 - discount", "elementwise_binary", "sub", ("one", "disc"), None),
+    ("q1 1 + tax", "elementwise_binary", "add", ("one", "tax"), None),
+)
+# the call whose numbers stand for each wrapper in the summary
+H8_SUMMARY = {"elementwise_compare": "q6 l_discount ge",
+              "elementwise_binary": "q6 price * discount"}
+_TORCH_CMP = {"eq": torch.eq, "ne": torch.ne, "lt": torch.lt, "le": torch.le,
+              "gt": torch.gt, "ge": torch.ge}
+_TORCH_ARITH = {"add": torch.add, "sub": torch.sub, "mul": torch.mul}
+
+
+def line_columns(dev, n=N_LINES):
+    """lineitem's columns as Q1 and Q6 read them, made on the card; `one`
+    is Q1's literal, one element broadcast."""
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def hundredths(lo, hi):
+        return torch.randint(lo, hi, (n,), device=dev,
+                             generator=g).double() / 100
+    return {"ship": torch.randint(8036, 10562, (n,), dtype=torch.int32,
+                                  device=dev, generator=g),
+            "disc": hundredths(0, 11), "tax": hundredths(0, 9),
+            "qty": torch.randint(1, 51, (n,), device=dev,
+                                 generator=g).double(),
+            "price": hundredths(90_000, 10_500_000),
+            "one": torch.ones((), dtype=torch.float64,
+                              device=dev).expand(n)}
+
+
+def h8_call(cols, wrapper, op, names, value):
+    """(H8's call, its plain version's, the library's nearest call: the
+    op alone, on unflushed inputs, a compare's bool not made int8)."""
+    args = [cols[c] for c in names]
+    if wrapper == "elementwise_compare":
+        return (lambda: kernels.elementwise_compare(args[0], op, value),
+                lambda: kernels.elementwise_compare_plain(args[0], op, value),
+                lambda: _TORCH_CMP[op](args[0], value))
+    return (lambda: kernels.elementwise_binary(op, *args),
+            lambda: kernels.elementwise_binary_plain(op, *args),
+            lambda: _TORCH_ARITH[op](*args))
+
+
+def h8_bytes(cols, names, out_itemsize):
+    """What one call must move: each column read once (a broadcast
+    operand is one element) and the output written."""
+    n = N_LINES
+    read = sum(n * cols[c].element_size() for c in names
+               if cols[c].stride(0) != 0)
+    return read + n * out_itemsize
+
+
+def phase_elementwise(rng, dev):
+    """H8 at Q6's and Q1's shapes: each call held to its plain version,
+    then timed beside its byte bound, its plain version (the torch path it
+    replaces: the flushes, the op, the int8 copy; device and host time)
+    and the library's op alone. Returns each wrapper's stats (H8_SUMMARY's call), every call's
+    under `at_shapes`. (The edge values, tails and views are the card
+    tests', `tests/test_torch_cuda.py -k h8`.)"""
+    cols = line_columns(dev)
+    stats = {name: {"at_shapes": {}} for name in H8_SUMMARY}
+    for what, wrapper, op, names, value in H8_CALLS:
+        run, plain, library = h8_call(cols, wrapper, op, names, value)
+        got = run()
+        exact_bits(got.cpu(), plain().cpu(), f"{wrapper} at {what}")
+        moved = h8_bytes(cols, names, got.element_size())
+        dev_ms, acts = one_launch_ms(run, wrapper)
+        st = dict(max_abs_err=0.0, ms=cuda_ms(run), profiler_ms=dev_ms,
+                  host_ms=host_ms(run), plain_host_ms=host_ms(plain),
+                  plain_ms=cuda_ms(plain), library_ms=cuda_ms(library),
+                  bound_ms=bound_ms(moved), bound_by="bytes",
+                  shape=f"{what}, {N_LINES} rows, {got.dtype} out")
+        print(f"{wrapper} at {what}: ms={st['ms']:.4f} profiler_ms="
+              f"{st['profiler_ms']} host_ms={st['host_ms']:.4f} "
+              f"plain_host_ms={st['plain_host_ms']:.4f} plain_ms="
+              f"{st['plain_ms']:.4f} library_ms={st['library_ms']:.4f} "
+              f"bound_ms={st['bound_ms']:.4f} (activities per call {acts})",
+              flush=True)
+        stats[wrapper]["at_shapes"][what] = st
+        if H8_SUMMARY[wrapper] == what:
+            stats[wrapper].update(st)
+        del got
+    return stats
+
+
+def h8_first_calls(dev):
+    """In this process (fresh: run as `chip_smoke.py --h8-first-calls`),
+    the first and second call of each H8 operation the benchmark's four
+    cells launch, at their shapes, host clock to a sync; the library
+    loaded and one other kernel run first, so that neither counts."""
+    kernels.build()
+    _lib.lib()
+    kernels.scan("sum", torch.zeros(1, dtype=torch.int32, device=dev))
+    cols = line_columns(dev)
+    cols["seg"] = torch.randint(0, 5, (1_500_000,), device=dev).to(
+        torch.int8)
+    cols["sums"] = torch.rand(15_000_000, device=dev,
+                              dtype=torch.float64) * 400
+    calls = [c[:5] for c in H8_CALLS] + [
+        ("q3 c_mktsegment eq", "elementwise_compare", "eq", ("seg",), 2),
+        ("q3 l_shipdate gt", "elementwise_compare", "gt", ("ship",), 9204),
+        ("q3 1 - discount", "elementwise_binary", "sub", ("one", "disc"),
+         None),
+        ("q18 sum_qty gt", "elementwise_compare", "gt", ("sums",), 313.0)]
+    torch.cuda.synchronize()
+    rows = []
+    for what, wrapper, op, names, value in calls:
+        run = h8_call(cols, wrapper, op, names, value)[0]
+        ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append({"call": what, "first_ms": ms[0], "second_ms": ms[1]})
+        print(f"h8 first call {what}: first_ms={ms[0]:.3f} "
+              f"second_ms={ms[1]:.3f}", flush=True)
+    worst = max(r["first_ms"] - r["second_ms"] for r in rows)
+    print(json.dumps({"h8_first_calls": rows, "worst_extra_ms": worst,
+                      "card": card_line()}), flush=True)
+    return 0 if worst < 50 else 1
 
 
 # -- the dense path -----------------------------------------------------------
@@ -3133,6 +3295,8 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if argv[:1] == ["--h8-first-calls"]:
+        return h8_first_calls(torch.device("cuda", 0))
     torch.set_num_threads(os.cpu_count() or 1)
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -3154,7 +3318,9 @@ def main(argv=None):
                          (("expand_fill",), phase_expand),
                          (("domain_probe", "dense_groupby"), phase_dense),
                          (("wide_groupby",), phase_wide),
-                         (("hash_build", "hash_probe"), phase_hash)):
+                         (("hash_build", "hash_probe"), phase_hash),
+                         (("elementwise_binary", "elementwise_compare"),
+                          phase_elementwise)):
         t0 = time.perf_counter()
         got = phase(rng, dev)
         stats.update(got if len(names) > 1 else {names[0]: got})

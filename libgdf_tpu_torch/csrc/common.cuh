@@ -1,5 +1,5 @@
 // Shared pieces of the Hopper kernels: block geometry, a block-wide
-// exclusive sum of one int per thread, the dtype codes of H5 and H6, the
+// exclusive sum of one int per thread, the dtype codes of H5, H6 and H8, the
 // launch check that turns a refused launch into the cudaError_t the C
 // entry points return, and the message of such an error.
 #pragma once
@@ -51,7 +51,7 @@ __device__ __forceinline__ unsigned nonzero_bytes(unsigned w) {
   return m;
 }
 
-// The dtype codes of H5's and H6's columns; mirrors
+// The dtype codes of H5's, H6's and H8's columns; mirrors
 // ops/kernels/_lib.py::DTYPE_CODES. scan.cu has codes of its own.
 namespace dtype {
 enum : int { kI8 = 0, kI16 = 1, kI32 = 2, kI64 = 3, kU8 = 4, kF32 = 5,

@@ -30,6 +30,14 @@ operator would answer otherwise:
     user who reads it directly sees it (float32 1.5e-38 - 1.4e-38 is
     1e-39 here, 0.0 in the JAX package);
   - a bitwise op on a float column raises TypeError, as jnp's do.
+
+add / sub / mul of two float columns and `compare_scalar` run H8
+(`kernels/elementwise.py`): one pass each, the flush in the kernel's load,
+where the inputs are what H8 reads (1-D, contiguous or one element
+broadcast; a Python int or float scalar). Everything else keeps its torch
+expression: arithmetic with an integer operand, a tensor scalar, another
+view. Each such call counts `elementwise.h8` or `elementwise.torch` in
+`utils.tracing.counters()`.
 """
 from __future__ import annotations
 
@@ -40,7 +48,8 @@ from ..core.bits import flush_denormals
 from ..core.column import Column
 from ..core.dtypes import DtypeInfo, GDFDtype, TimeUnit, dtype_from_numpy
 from ..core.errors import GDFError, GDFStatus, require
-from ..utils.tracing import host_sync, span, spanned
+from ..utils.tracing import count, host_sync, span, spanned
+from .kernels import elementwise as h8
 
 # ---------------------------------------------------------------------------
 # Unary math (unaryops.cu:96-335)
@@ -181,9 +190,18 @@ def _div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a / b
 
 
-def _flushed(fn):
-    """fn over its inputs, each flushed in its own dtype first."""
-    return lambda a, b: fn(flush_denormals(a), flush_denormals(b))
+def _arith(op):
+    """op over its inputs, each flushed in its own dtype first: H8 where
+    both are float columns it reads, else torch."""
+    def run(a, b):
+        if a.dtype in h8.FLOATS and b.dtype in h8.FLOATS and \
+                a.device == b.device and h8.reads(a) and h8.reads(b) and \
+                not (h8.broadcast(a) and h8.broadcast(b)):
+            count("elementwise.h8")
+            return h8.elementwise_binary(op, a, b)
+        count("elementwise.torch")
+        return h8.elementwise_binary_plain(op, a, b)
+    return run
 
 
 def _bitwise(fn):
@@ -196,8 +214,8 @@ def _bitwise(fn):
 
 
 _ARITH = {
-    "add": _flushed(torch.add), "sub": _flushed(torch.sub),
-    "mul": _flushed(torch.mul), "div": _div, "floordiv": _floordiv,
+    "add": _arith("add"), "sub": _arith("sub"), "mul": _arith("mul"),
+    "div": _div, "floordiv": _floordiv,
     "bitwise_and": _bitwise(torch.bitwise_and),
     "bitwise_or": _bitwise(torch.bitwise_or),
     "bitwise_xor": _bitwise(torch.bitwise_xor),
@@ -254,18 +272,18 @@ def compare_scalar(col: Column, value, op) -> Column:
 
     ≅ gpu_comparison_static_* (filterops.cu:17-95). An integer column
     compared with a float scalar compares in float64, as the JAX package's
-    promotion does; otherwise the scalar takes the column's dtype."""
+    promotion does; otherwise the scalar takes the column's dtype. H8 where
+    the column is one it reads and the scalar a Python int or float it
+    takes, else torch."""
     op = _CMP_ENUM[op]
     data = col.data
-    if isinstance(value, float) and not data.is_floating_point():
-        data = data.to(torch.float64)
-    if data.is_floating_point():
-        data = flush_denormals(data)
-        if not isinstance(value, torch.Tensor):
-            # the scalar as the column's dtype, flushed on the host
-            value = flush_denormals(torch.tensor(value,
-                                                 dtype=data.dtype)).item()
-    out = _CMP[op](data, value).to(torch.int8)
+    if h8.takes_scalar(data.dtype, value) and data.dim() == 1 and \
+            data.is_contiguous():
+        count("elementwise.h8")
+        out = h8.elementwise_compare(data, op, value)
+    else:
+        count("elementwise.torch")
+        out = h8.elementwise_compare_plain(data, op, value)
     return Column(data=out, valid=col.valid, info=_INT8, name=col.name)
 
 

@@ -6,7 +6,7 @@ its sources and the signatures of its C entry points. It is built at its
 first launch, one compiler process per source, all started together, then
 one link, keyed by a hash of its sources and flags, into `build/kernels/`
 at the root of the checkout, and loaded once per process. `KERNELS` is the
-operators' library (H1-H7): `lib()`, `build()`, `library_path()` and
+operators' library (H1-H8): `lib()`, `build()`, `library_path()` and
 `check()` are its. The cost probes build their own (`probes/_common.py`).
 Nothing here runs at import time, so the package imports on a machine
 without CUDA.
@@ -36,8 +36,9 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 _PI = ctypes.POINTER(ctypes.c_int)
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_D = ctypes.c_double
 
-# The dtype codes of H5's and H6's columns (`gdf::dtype` in csrc/common.cuh).
+# The dtype codes of H5's, H6's and H8's columns (`gdf::dtype` in csrc/common.cuh).
 DTYPE_CODES = {torch.int8: 0, torch.int16: 1, torch.int32: 2,
                torch.int64: 3, torch.uint8: 4, torch.bool: 4,
                torch.float32: 5, torch.float64: 6}
@@ -134,8 +135,8 @@ class Library:
 
 
 KERNELS = Library("kernels", (
-    "compact.cu", "dense_groupby.cu", "expand.cu", "hash_join.cu", "scan.cu",
-    "common.cuh", "lookback.cuh"), {
+    "compact.cu", "dense_groupby.cu", "elementwise.cu", "expand.cu",
+    "hash_join.cu", "scan.cu", "common.cuh", "lookback.cuh"), {
     "gdf_scan_scratch_bytes": (_I64, [_I, _I64]),
     "gdf_scan": (_I, [_I, _I, _I, _P, _P, _I64, _P, _I64, _P]),
     "gdf_seg_scan_scratch_bytes": (_I64, [_I, _I64]),
@@ -158,6 +159,10 @@ KERNELS = Library("kernels", (
     "gdf_hash_build": (_I, [_I, _P, _P, _P, _I64, _P, _I64, _P, _P]),
     "gdf_hash_probe": (_I, [_I, _P, _P, _P, _I64, _P, _I64, _P, _P, _I64,
                             _P, _P]),
+    "gdf_elementwise_binary": (_I, [_I, _I, _I, _I, _P, _P, _P, _I64, _I,
+                                    _P]),
+    "gdf_elementwise_compare": (_I, [_I, _I, _P, _I, _I64, _D, _P, _I64, _I,
+                                     _P]),
 })
 lib = KERNELS.load
 build = KERNELS.build

@@ -2156,3 +2156,196 @@ def test_hash_join_operator_on_the_card(dev):
     assert outs["cpu"][2] == outs["cuda"][2] > 0
     assert torch.equal(outs["cpu"][0], outs["cuda"][0])
     assert torch.equal(outs["cpu"][1], outs["cuda"][1])
+
+
+# -- H8: add / sub / mul and compare_scalar in one pass -----------------------
+
+# an arithmetic step is 4 elements, a compare step 16: ragged tails of each,
+# and TPC-H SF 10's line items (Q1's and Q6's columns)
+H8_SIZES = [0, 1, 3, 4, 5, 15, 16, 17, 1023, 100_003]
+Q_ROWS = 59_986_052
+H8_OPS = ("add", "sub", "mul")
+CMP = ("eq", "ne", "lt", "le", "gt", "ge")
+FLOATS = (torch.float32, torch.float64)
+
+
+def _h8_edges(rng, n, dtype, dev):
+    """The flush's edge values of a float dtype, or small ints and the
+    dtype's ends."""
+    if dtype.is_floating_point:
+        d = 1e-40 if dtype == torch.float32 else 1e-310
+        t = torch.finfo(dtype).tiny
+        vals = [0.0, -0.0, d, -d, t, -t, 1.5, -2.25, float("inf"),
+                float("-inf"), float("nan")]
+    else:
+        info = torch.iinfo(dtype)
+        vals = [0, 1, -1, 5, 6, info.min, info.max]
+    return torch.tensor(vals, dtype=dtype)[
+        torch.as_tensor(rng.integers(0, len(vals), n))].to(dev)
+
+
+def _same_bits(got, want, what=""):
+    """Bit-identical but for NaN's payload: NaN where NaN, the sign of a
+    zero kept."""
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan), what
+    wide = {torch.float32: torch.int32, torch.float64: torch.int64}
+    g, w = got.masked_fill(nan, 0), want.masked_fill(nan, 0)
+    assert torch.equal(g.view(wide[g.dtype]), w.view(wide[w.dtype])), what
+
+
+def _h8_operand(rng, n, dtype, dev, broadcast, offset=0):
+    if broadcast:
+        return _h8_edges(rng, 1, dtype, dev).reshape(()).expand(n)
+    return _h8_edges(rng, n + offset, dtype, dev)[offset:]
+
+
+@pytest.mark.parametrize("n", H8_SIZES)
+@pytest.mark.parametrize("da,db", [(a, b) for a in FLOATS for b in FLOATS])
+@pytest.mark.parametrize("shape", ["columns", "scalar_a", "scalar_b"])
+def test_h8_binary_matches_plain(dev, n, da, db, shape):
+    """H8's add / sub / mul equal their plain versions bit for bit, with a
+    stride-0 operand on either side, float32 against float64."""
+    rng = np.random.default_rng(n)
+    for i in range(3 if shape != "columns" else 1):
+        a = _h8_operand(rng, n, da, dev, shape == "scalar_a" and n > 1)
+        b = _h8_operand(rng, n, db, dev, shape == "scalar_b" and n > 1)
+        for op in H8_OPS:
+            _same_bits(kernels.elementwise_binary(op, a, b),
+                       kernels.elementwise_binary_plain(op, a, b),
+                       f"{op} {a.dtype} {b.dtype} {shape} n={n}")
+
+
+@pytest.mark.parametrize("offsets", [(1, 0), (0, 1), (1, 1), (3, 2)])
+def test_h8_binary_unaligned_views(dev, offsets):
+    """Views off a 16-byte boundary take the scalar path, and equal the
+    plain version."""
+    rng = np.random.default_rng(5)
+    n = 100_003
+    for da, db in ((torch.float64, torch.float64),
+                   (torch.float32, torch.float64)):
+        a = _h8_operand(rng, n, da, dev, False, offsets[0])
+        b = _h8_operand(rng, n, db, dev, False, offsets[1])
+        for op in H8_OPS:
+            _same_bits(kernels.elementwise_binary(op, a, b),
+                       kernels.elementwise_binary_plain(op, a, b),
+                       f"{op} {offsets}")
+
+
+def _h8_scalars(dtype):
+    if dtype.is_floating_point:
+        return [0.0, -0.0, 1e-40, -1e-40, 1e-310, -1e-310,
+                float(torch.finfo(dtype).tiny), 1.5, float("inf"),
+                float("nan"), 0, -3, 2 ** 53]
+    info = torch.iinfo(dtype)
+    return [0, 5, -1, int(info.min), int(info.max), info.max + 45,
+            info.min - 300, 0.0, -0.0, 1e-310, 2.5, -1.5, float("nan"),
+            float("inf")]
+
+
+@pytest.mark.parametrize("n", H8_SIZES)
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32,
+                                   torch.int64, torch.float32,
+                                   torch.float64])
+def test_h8_compare_matches_plain(dev, n, dtype):
+    """H8's compare against a scalar equals its plain version: every op,
+    int and float scalars, zeros, denormals, NaN, inf, ints past the
+    column's range (wrapped to it, as torch does) and at offset 1."""
+    rng = np.random.default_rng(n + 3)
+    for offset in (0, 1):
+        x = _h8_edges(rng, n + offset, dtype, dev)[offset:]
+        for v in _h8_scalars(dtype):
+            if dtype == torch.int64 and isinstance(v, int) and \
+                    not -2 ** 63 <= v < 2 ** 63:
+                continue
+            for op in CMP:
+                got = kernels.elementwise_compare(x, op, v)
+                assert got.dtype == torch.int8
+                assert torch.equal(got, kernels.elementwise_compare_plain(
+                    x, op, v)), (dtype, op, v, offset, n)
+
+
+def test_h8_at_q1_and_q6_shapes(dev):
+    """Each operation Q1 and Q6 send through H8, at SF 10's 59,986,052 rows
+    (a ragged tail): bit-identical to the plain versions; one launch a
+    call, counted by dtype, and `elementwise.h8` once a call."""
+    from libgdf_tpu_torch import Column, ops
+    from libgdf_tpu_torch.core import DtypeInfo, GDFDtype
+    from libgdf_tpu_torch.utils import tracing
+    g = torch.Generator(device=dev).manual_seed(3)
+    n = Q_ROWS
+    f64 = DtypeInfo(GDFDtype.FLOAT64)
+    ship = Column(data=torch.randint(8000, 10600, (n,), device=dev,
+                                     dtype=torch.int32, generator=g),
+                  info=DtypeInfo(GDFDtype.DATE32))
+    disc = Column(data=torch.randint(0, 11, (n,), device=dev,
+                                     generator=g).double() / 100, info=f64)
+    qty = Column(data=torch.randint(1, 51, (n,), device=dev,
+                                    generator=g).double(), info=f64)
+    price = Column(data=torch.rand(n, device=dev, dtype=torch.float64,
+                                   generator=g) * 1e5, info=f64)
+    one = Column(data=torch.ones((), dtype=torch.float64,
+                                 device=dev).expand(n), info=f64)
+    kernels.reset_launch_counts()
+    tracing.reset_counters()
+    calls = [
+        (lambda: ops.compare_scalar(ship, 8766, "ge"), ship, 8766, "ge"),
+        (lambda: ops.compare_scalar(ship, 9131, "lt"), ship, 9131, "lt"),
+        (lambda: ops.compare_scalar(disc, 0.05, "ge"), disc, 0.05, "ge"),
+        (lambda: ops.compare_scalar(disc, 0.07, "le"), disc, 0.07, "le"),
+        (lambda: ops.compare_scalar(qty, 24, "lt"), qty, 24, "lt"),
+        (lambda: ops.compare_scalar(ship, 10471, "le"), ship, 10471, "le")]
+    for run, col, v, op in calls:
+        assert torch.equal(run().data, kernels.elementwise_compare_plain(
+            col.data, op, v)), (op, v)
+    dp = ops.mul(price, ops.sub(one, disc))
+    charge = ops.mul(dp, ops.add(one, qty))
+    want = kernels.elementwise_binary_plain("mul", price.data,
+                                            kernels.elementwise_binary_plain(
+                                                "sub", one.data, disc.data))
+    _same_bits(dp.data, want, "disc_price")
+    _same_bits(charge.data, kernels.elementwise_binary_plain(
+        "mul", want, kernels.elementwise_binary_plain("add", one.data,
+                                                      qty.data)), "charge")
+    _same_bits(ops.mul(price, disc).data, kernels.elementwise_binary_plain(
+        "mul", price.data, disc.data), "revenue")
+    counts = kernels.launch_counts()
+    assert counts["elementwise_compare"] == 6
+    assert counts["elementwise_compare[int32]"] == 3
+    assert counts["elementwise_compare[float64]"] == 3
+    assert counts["elementwise_binary"] == counts[
+        "elementwise_binary[float64]"] == 5
+    got = tracing.counters()
+    assert got["elementwise.h8"] == 11 and "elementwise.torch" not in got
+
+
+def test_h8_of_no_rows_launches_nothing(dev):
+    kernels.reset_launch_counts()
+    x = torch.empty(0, dtype=torch.float64, device=dev)
+    assert kernels.elementwise_binary("add", x, x).shape == (0,)
+    assert kernels.elementwise_compare(x, "lt", 0.0).dtype == torch.int8
+    counts = kernels.launch_counts()
+    assert counts["elementwise_binary"] == counts["elementwise_compare"] == 0
+
+
+def test_h8_does_not_wait_on_the_card(dev):
+    """No H8 call makes the host wait: torch's sync debug mode sees none."""
+    import warnings
+    from libgdf_tpu_torch import Column, ops
+    x = Column.from_array(np.linspace(-1, 1, 100_003), device="cuda")
+    f = Column.from_array(np.linspace(-1, 1, 100_003).astype(np.float32),
+                          device="cuda")
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            ops.compare_scalar(ops.sub(x, f), 0.25, "gt")
+            ops.compare_scalar(x, 1e-310, "le")
+            ops.mul(f, f)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in seen
+             if "called a synchronizing" in str(w.message)]
+    assert not syncs, syncs

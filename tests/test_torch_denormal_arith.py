@@ -26,12 +26,20 @@ order (ROADMAP queue C, "Reference side"), so there the two must agree as
 zeros.
 
 A bitwise op on a float column raises TypeError in both packages.
+
+add / sub / mul of float columns and `compare_scalar` take H8's path
+(`ops/kernels/elementwise.py`), which on the CPU is its plain version;
+`test_h8_ops_against_libgdf_tpu` holds that path to the JAX package on the
+flush's edge values: both sides, an operand of stride 0 on either side,
+float32 against float64, every column dtype against int and float
+scalars, and zero, -0.0 and denormal scalars.
 """
 import functools
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 import libgdf_tpu
 from libgdf_tpu import ops as jops
@@ -40,6 +48,8 @@ from libgdf_tpu.compat import gdf as jgdf
 from libgdf_tpu_torch import Column, ops
 from libgdf_tpu_torch import parallel as par
 from libgdf_tpu_torch.compat import gdf
+from libgdf_tpu_torch.core import DtypeInfo, GDFDtype
+from libgdf_tpu_torch.utils import tracing
 from torch_parity import assert_tables_match, jax_op, make_tables, np_of
 
 F32, F64 = np.float32, np.float64
@@ -422,3 +432,146 @@ def test_bitwise_op_on_floats_raises_type_error(op):
             ops.binary_op(ta, tb, op)
         with pytest.raises(TypeError):
             getattr(ops, op)(ta, tb)
+
+
+# -- H8: add / sub / mul and compare_scalar in one pass ------------------------
+
+CMP_OPS = ("eq", "ne", "lt", "le", "gt", "ge")
+H8_ROWS = 64
+
+
+def scalars(dtype):
+    """The flush's edge values as scalars of `dtype`."""
+    d, t = DENORMAL[dtype], np.finfo(dtype).tiny
+    return [dtype(v) for v in (0.0, -0.0, d, -d, t, -t, 1.5, np.inf,
+                               -np.inf, np.nan)]
+
+
+def broadcast(value, dtype, n):
+    """One value as both packages' columns of n rows: n copies in the JAX
+    package's, one element of stride 0 in the port's (a literal)."""
+    data = torch.full((), float(value),
+                      dtype=torch.from_numpy(np.zeros(0, dtype)).dtype)
+    gdt = GDFDtype.FLOAT32 if dtype == F32 else GDFDtype.FLOAT64
+    return (libgdf_tpu.Column.from_array(np.full(n, value, dtype)),
+            Column(data=data.expand(n), info=DtypeInfo(gdt)))
+
+
+def _arith_case(rng, col, other, side):
+    """(JAX, port) column pairs: an edge-value column of `col` against
+    each edge scalar of `other` broadcast on `side` ("a" or "b"), or
+    against an edge-value column of `other` both ways round ("none")."""
+    x = both(edge_values(rng, col, H8_ROWS), rng.random(H8_ROWS) < 0.1)
+    if side == "none":
+        y = both(edge_values(rng, other, H8_ROWS))
+        return [(x, y), (y, x)]
+    pairs = [(x, broadcast(v, other, H8_ROWS)) for v in scalars(other)]
+    return pairs if side == "b" else [(b, a) for a, b in pairs]
+
+
+def _cmp_values(col):
+    """The scalars a column of numpy dtype `col` meets: the edge values
+    of both float dtypes against a float column; ints within the dtype's
+    range and floats (zero, -0.0, a denormal, halves, NaN, inf) against an
+    integer column."""
+    if col in (F32, F64):
+        return [float(v) for v in scalars(F32) + scalars(F64)] + [0, -3]
+    info = np.iinfo(col)
+    return [0, 1, -1, 5, int(info.min), int(info.max), 0.0, -0.0, 1e-310,
+            -1e-310, 2.5, -2.5, float("nan"), float("inf")]
+
+
+def _cmp_column(rng, col, gdt):
+    if col in (F32, F64):
+        values = edge_values(rng, col, H8_ROWS)
+    else:
+        info = np.iinfo(col)
+        values = rng.choice(np.array([0, 1, -1, 5, 6, 4, info.min, info.max],
+                                     col), H8_ROWS)
+    null = rng.random(H8_ROWS) < 0.1
+    return (libgdf_tpu.Column.from_array(values, valid=~null, gdf_dtype=gdt),
+            Column.from_array(values, valid=~null, gdf_dtype=gdt,
+                              device="cpu"))
+
+
+ARITH_CASES = [(c, o, side) for c in (F32, F64) for o in (F32, F64)
+               for side in ("a", "b", "none")]
+CMP_CASES = [(F32, GDFDtype.FLOAT32), (F64, GDFDtype.FLOAT64),
+             (np.int8, GDFDtype.INT8), (np.int16, GDFDtype.INT16),
+             (np.int32, GDFDtype.INT32), (np.int32, GDFDtype.DATE32),
+             (np.int64, GDFDtype.INT64)]
+H8_CASES = {**{f"{np.dtype(c).name}_{np.dtype(o).name}_broadcast_{side}":
+               ("arith", c, o, side) for c, o, side in ARITH_CASES},
+            **{f"compare_{gdt.name.lower()}": ("compare", c, gdt)
+               for c, gdt in CMP_CASES}}
+
+
+@pytest.mark.parametrize("case", list(H8_CASES))
+def test_h8_ops_against_libgdf_tpu(rng, case):
+    """H8's path (its plain version on the CPU) equals the JAX package on
+    the flush's edge values, and each call counts `elementwise.h8`."""
+    kind, *spec = H8_CASES[case]
+    tracing.reset_counters()
+    if kind == "arith":
+        pairs = _arith_case(rng, *spec)
+        wants = _jax_arith()([(ja, jb) for (ja, _), (jb, _) in pairs])
+        calls = 0
+        for ((_, ta), (_, tb)), per_op in zip(pairs, wants):
+            for op, want in zip(ARITH, per_op):
+                what = (f"{case}: {np_of(ta.data)[:1]} {op} "
+                        f"{np_of(tb.data)[:1]}")
+                same_column(want, getattr(ops, op)(ta, tb), what)
+                calls += 1
+    else:
+        col, gdt = spec
+        jc, tc = _cmp_column(rng, col, gdt)
+        values = _cmp_values(col)
+        # The JAX package compares an integer column with a denormal float
+        # as with the denormal itself (XLA turns the float64 compare into
+        # one on the integers and keeps the constant), where it reads a
+        # denormal as zero in every float compare; the port flushes it
+        # there too, so it is held to the compare with a zero of its sign.
+        flushed = [float(np.copysign(0.0, v)) if isinstance(v, float) and
+                   0 < abs(v) < np.finfo(F64).tiny else v for v in values]
+        wants = jax.jit(lambda c: [[jops.compare_scalar(c, v, op)
+                                    for op in CMP_OPS] for v in flushed])(jc)
+        calls = 0
+        for v, per_op in zip(values, wants):
+            for op, want in zip(CMP_OPS, per_op):
+                same_column(want, ops.compare_scalar(tc, v, op),
+                            f"{case}: {op} {v!r}")
+                calls += 1
+    got = tracing.counters()
+    assert got.get("elementwise.h8") == calls, got
+    assert "elementwise.torch" not in got, got
+
+
+def test_h8_dispatch_follows_the_inputs():
+    """H8 takes float arithmetic and Python scalars on the columns it
+    reads; integer operands, a tensor scalar, a strided view and two
+    broadcast operands keep their torch expressions. Both paths count."""
+    f = Column.from_array(np.array([1e-310, 1.0, -2.0, 3.0]), device="cpu")
+    i = Column.from_array(np.arange(4, dtype=np.int32), device="cpu")
+    one = Column(data=torch.ones((), dtype=torch.float64).expand(4),
+                 info=DtypeInfo(GDFDtype.FLOAT64))
+    strided = Column(data=torch.arange(8, dtype=torch.float64)[::2],
+                     info=DtypeInfo(GDFDtype.FLOAT64))
+    tracing.reset_counters()
+    for a, b in ((f, f), (f, one), (one, f)):
+        ops.mul(a, b)
+    ops.compare_scalar(f, 0.0, "lt")
+    ops.compare_scalar(i, 2.5, "ge")
+    assert tracing.counters().get("elementwise.h8") == 5
+    assert "elementwise.torch" not in tracing.counters()
+    for a, b in ((f, i), (i, i), (one, one), (strided, f)):
+        same(np_of(ops.add(a, b).data),
+             np_of(torch.add(*(a.data if a.data.dtype == torch.int32
+                              else a.data * (a.data.abs() >= 2.2e-308),
+                              b.data if b.data.dtype == torch.int32
+                              else b.data * (b.data.abs() >= 2.2e-308)))))
+    ops.compare_scalar(f, torch.tensor(0.0, dtype=torch.float64), "lt")
+    ops.compare_scalar(i, np.int64(2), "ge")
+    ops.compare_scalar(strided, 1.0, "gt")
+    got = tracing.counters()
+    assert got.get("elementwise.h8") == 5 and \
+        got.get("elementwise.torch") == 7, got

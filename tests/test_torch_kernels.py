@@ -240,6 +240,31 @@ def test_wrappers_raise_off_the_cpu_without_a_kernel():
         kernels.expand_fill(x, [x], 5)
     with pytest.raises(ValueError):   # mixed devices
         kernels.compact([torch.zeros(10, dtype=torch.int32)], f)
+    m = torch.empty(10, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError):
+        kernels.elementwise_binary("add", m, m)
+    with pytest.raises(ValueError):
+        kernels.elementwise_compare(m, "lt", 0.0)
+
+
+def test_h8_wrappers_take_plain_versions_on_cpu():
+    """On CPU tensors H8's wrappers are their plain versions (each float
+    input flushed, then torch's op; a compare's bool as int8) and launch
+    nothing; what H8 cannot read raises on the card's path only."""
+    kernels.reset_launch_counts()
+    a = torch.tensor([1e-310, -1e-310, 1.5, float("nan")],
+                     dtype=torch.float64)
+    b = torch.tensor([1e-40, 2.0, -0.0, 1.0], dtype=torch.float32)
+    got = kernels.elementwise_binary("mul", a, b)
+    assert got.dtype == torch.float64
+    assert got[:3].tolist() == [0.0, 0.0, 0.0] and got[3].isnan()
+    assert got[:3].signbit().tolist() == [False, True, True]
+    stencil = kernels.elementwise_compare(a, "le", 0.0)
+    assert stencil.dtype == torch.int8
+    assert stencil.tolist() == [1, 1, 0, 0]
+    assert kernels.elementwise_compare(
+        torch.tensor([0, 1], dtype=torch.int32), "lt", 0.5).tolist() == [1, 0]
+    assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
 
 
 @pytest.mark.parametrize("library", [_lib.KERNELS, _common.LIBRARY],

@@ -180,7 +180,8 @@ JOIN_FALLBACK = {"join.hash.count": 1, "join.key_change": 1, "join.total": 1,
                  "join.unique_build": 1, "join.hash_fallback": 1,
                  "join.sort": 1}
 PATHS = ("groupby.dense", "groupby.sort", "join.hash", "join.sort",
-         "join.hash_fallback", "reduce", "reduce.rows")  # events, not syncs
+         "join.hash_fallback", "reduce", "reduce.rows", "elementwise.h8",
+         "elementwise.torch")  # events, not syncs
 
 
 @pytest.mark.parametrize("fn,want", [
@@ -190,10 +191,10 @@ PATHS = ("groupby.dense", "groupby.sort", "join.hash", "join.sort",
     (lambda: ops.groupby(tables()[0], ["k"], [("v", "sum")]),
      {"groupby.domain": 1, "groupby.dense": 1}),
     (lambda: ops.filter_table(tables()[0], ops.compare_scalar(
-        tables()[0]["v"], 2.5, "lt")), {}),
+        tables()[0]["v"], 2.5, "lt")), {"elementwise.h8": 1}),
     (lambda: to_numpy(ops.filter_table(tables()[0], ops.compare_scalar(
         tables()[0]["k"], 3, "eq"))),
-     {"table.compact": 1, "interop.to_numpy": 1}),
+     {"table.compact": 1, "interop.to_numpy": 1, "elementwise.h8": 1}),
     (lambda: tables()[0]["v"].to_numpy_masked(), {"column.to_numpy": 1}),
     (lambda: expand_fill(torch.tensor([0, 2], dtype=torch.int32),
                          [torch.tensor([5, 6], dtype=torch.int32)],
@@ -300,6 +301,19 @@ def test_benchmark_plans_take_their_groupby_path(name, paths, syncs):
     assert got["host_sync.groupby.domain"] == 1
     assert "host_sync.groupby.new_group" not in got
     assert got["host_sync"] == syncs
+
+
+@pytest.mark.parametrize("name,calls", [
+    ("tpch_sf10.q1", 5), ("tpch_sf10.q3", 5), ("tpch_sf10_q18.q18", 1),
+    ("tpch_sf10.q6", 6)])
+def test_benchmark_plans_take_h8(name, calls):
+    """Every compare_scalar and float add / sub / mul of the plans takes
+    H8 (Q1: its filter and two expressions; Q3: three filters and its
+    revenue; Q18: the HAVING; Q6: five predicates and the product) and
+    none is left on torch."""
+    got = run_query(name)
+    assert got.get("elementwise.h8") == calls, got
+    assert "elementwise.torch" not in got, got
 
 
 def test_q6_plan_sums_on_the_card_without_a_wait():
